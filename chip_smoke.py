@@ -6,20 +6,38 @@
 Phases, each fatal on failure (the script then exits non-zero and prints
 no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build every kernel of the path from this checkout (block_warp.cu with
-     nvcc, the rANS core with g++), in parallel, and print the build time;
-  3. hold the block-warp kernel against its plain PyTorch version on the
-     card at the OffsetDiversity shape of 1080p (32 maps x 3 x 1088 x 1920,
-     f32 and bf16) and at two edge shapes; time kernel, plain version and
-     the exact warp (F.grid_sample, the yardstick: another function);
-  4. check the card's model numerics against the CPU on a small input;
-  5. the main path at full width: IntraNoAR (N=256) codes one I-frame, DMC
+  2. build every kernel of the paths from this checkout (block_warp.cu and
+     band_copy.cu with nvcc, the rANS core with g++), in parallel, and
+     print the build time;
+  3. hold the block-warp kernel (K1) against its plain PyTorch version on
+     the card at the OffsetDiversity shape of 1080p (32 maps x 3 x 1088 x
+     1920, f32 and bf16) and at two edge shapes; time kernel, plain version
+     and the exact warp (F.grid_sample, the yardstick: another function);
+  4. hold the band-copy kernel (K2) against its plain version (atol 0) at
+     the probe's shape (720 rows, [4, 16, 1408] f32 bands) and at an edge
+     shape with 4-byte copies; time kernel, plain version and
+     torch.index_select (the yardstick: it reads one channel, not the band);
+  5. the tile warp (tile:32,2,median, plain PyTorch) at the OffsetDiversity
+     shape, timed beside K1 and the exact warp, and its card-vs-CPU gap;
+  6. check the card's model numerics against the CPU on a small input;
+  7. the runtimes at full width: IntraNoAR (N=256) codes one I-frame, DMC
      codes P-frames, 1920x1080 padded to 1088, seeded random weights and
      seeded moving content; every frame goes compress -> pack -> bytes ->
      unpack -> decompress, and the decoder's DPB feeds the next frame;
      then one more P-frame under torch.profiler (device time by kernel,
      the card's busy share);
-  6. one JSON line per kernel, then the result line.
+  8. the video CLI (dcvc_tpu_torch.tools.test_video, in process) on a
+     seeded synthetic 1920x1080 YUV420 sequence of 3 frames: write-stream
+     (every .bin decoded again by a fresh runtime pair must give the CLI's
+     recon YUV byte for byte), the same with --aligned_enc 1 (identical
+     .bin files) and estimated bits;
+  9. the K2 probe tool (dcvc_tpu_torch.tools.diag_dma.run) at its shape;
+ 10. one JSON line per kernel, then the result line.
+
+Every path (7, 8 and 9) runs with the kernels' launch counts set to 0 just
+before it and read just after; a path that launched none of its kernels
+fails. Launches made to compare a kernel with its plain version are not
+counted.
 
 Imports nothing of JAX. Needs one card; without one it exits non-zero.
 """
@@ -29,7 +47,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -39,13 +56,6 @@ P_FRAMES = 2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12                  # H100 SXM f32, outside the tensor cores
 F32_TOL, BF16_TOL, RECON_TOL = 1e-5, 1e-2, 1e-4
-
-
-def _card_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return res.stdout.strip().splitlines()[0]
 
 
 def _time_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -81,6 +91,22 @@ def _od_inputs(M, C, H, W, dtype, shift, gen):
     off = 40.0 * torch.tanh(0.6 * F.interpolate(
         raw, size=(H, W), mode="bilinear", align_corners=False))
     return im, (motion + off).contiguous()
+
+
+def _reset_counts():
+    from dcvc_tpu_torch.ops import band_copy as bc
+    from dcvc_tpu_torch.ops import block_warp as bw
+
+    bw.block_warp_nchw.launches = 0
+    bc.band_copy.launches = 0
+
+
+def _counts() -> dict:
+    from dcvc_tpu_torch.ops import band_copy as bc
+    from dcvc_tpu_torch.ops import block_warp as bw
+
+    return {"block_warp": bw.block_warp_nchw.launches,
+            "band_copy": bc.band_copy.launches}
 
 
 def kernel_phase(results: dict):
@@ -128,6 +154,87 @@ def kernel_phase(results: dict):
         del im, flow, ker, plain
         torch.cuda.empty_cache()
     results["block_warp"] = rows
+
+
+def band_copy_phase(results: dict):
+    """K2 against its plain version (atol 0); fills results['band_copy']."""
+    import torch
+
+    from dcvc_tpu_torch.ops import band_copy as bc
+    from dcvc_tpu_torch.tools.diag_dma import make_inputs
+
+    rows = {}
+    for name, (H, Wp, C, A) in [("tool_720x1408x16x4", (720, 1408, 16, 4)),
+                                ("edge_16x130x3x4", (16, 130, 3, 4))]:
+        src, by = make_inputs(H, Wp, C, A, "cuda")
+        if name.startswith("edge"):
+            by[0], by[-1] = 0, H - 1          # the first and the last band
+        out = bc.band_copy(src, by, A)
+        torch.cuda.synchronize()
+        plain = bc.band_copy_plain(src, by)
+        err = (out - plain).abs().max().item()
+        if not (err == 0.0 and torch.isfinite(out).all()):
+            raise AssertionError(f"band_copy {name}: max abs err {err} > 0")
+        row = {"max_abs_err": err, "tol": 0.0,
+               "copies": "16-byte" if (C * Wp) % 4 == 0 else "4-byte"}
+        if name.startswith("tool"):
+            # by is in range (checked above), so the timed calls skip the
+            # host-side range check
+            row["ms"] = _time_ms(lambda: bc.band_copy(
+                src, by, A, check_range=False), 50, 5)
+            row["plain_ms"] = _time_ms(lambda: bc.band_copy_plain(src, by),
+                                       50, 5)
+            src0 = src[:, 0]
+            row["index_select_ms"] = _time_ms(
+                lambda: torch.index_select(src0, 0, by), 50, 5)
+            rows_touched = torch.unique(
+                (by.long()[:, None] + torch.arange(A, device="cuda"))
+                .reshape(-1)).numel()
+            unique = (rows_touched * C * Wp + H + H * Wp) * 4
+            requested = H * A * C * Wp * 4
+            row.update({
+                "unique_bytes": unique, "requested_band_bytes": requested,
+                "bound_ms": unique / HBM_BYTES_PER_S * 1e3,
+                "requested_bound_ms": requested / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "share_of_bound": unique / HBM_BYTES_PER_S * 1e3 / row["ms"],
+                "grid_ctas": H // 8, "sms": torch.cuda.get_device_properties(
+                    0).multi_processor_count})
+        rows[name] = row
+        print(f"band_copy {name}: {json.dumps(row)}", flush=True)
+    results["band_copy"] = rows
+
+
+def tile_warp_phase(results: dict):
+    """The tile warp (plain PyTorch) at the OD shape beside K1 and the
+    exact warp, and its card-vs-CPU gap on a small input."""
+    import torch
+
+    from dcvc_tpu_torch.ops import block_warp as bw
+    from dcvc_tpu_torch.ops.warp import flow_warp, tile_warp
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    im, flow = _od_inputs(8, 3, 67, 130, torch.float32, (20.0, -10.0), gen)
+    gap = (tile_warp(im, flow, 32, 2, "median").cpu()
+           - tile_warp(im.cpu(), flow.cpu(), 32, 2, "median")).abs().max().item()
+    if not gap <= F32_TOL:
+        raise AssertionError(f"tile warp card vs CPU gap {gap} > {F32_TOL}")
+    im, flow = _od_inputs(32, 3, 1088, 1920, torch.float32, (0.0, 0.0), gen)
+    row = {"mode": "tile:32,2,median", "shape": [32, 3, 1088, 1920],
+           "card_vs_cpu_gap_8x3x67x130": gap,
+           "tile_ms": _time_ms(lambda: tile_warp(im, flow, 32, 2, "median"),
+                               3, 1),
+           "block_warp_k1_ms": _time_ms(lambda: bw.block_warp_nchw(
+               im, flow, 4, 4, 64, 128, "median4"), 10, 2),
+           "grid_sample_exact_warp_ms": _time_ms(lambda: flow_warp(im, flow),
+                                                 10, 2)}
+    exact = flow_warp(im, flow)
+    row["tile_vs_exact_max_abs"] = (tile_warp(im, flow, 32, 2, "median")
+                                    - exact).abs().max().item()
+    print(f"tile_warp {json.dumps(row)}", flush=True)
+    results["tile_warp"] = row
+    del im, flow, exact
+    torch.cuda.empty_cache()
 
 
 def reference_phase():
@@ -249,7 +356,7 @@ def main_path_phase(results: dict):
 
     per_frame = []
     q_index = 32
-    bw.block_warp_nchw.launches = 0
+    _reset_counts()
     dpb_enc = dpb_dec = None
     for i, x in enumerate(frames):
         xp = F.pad(x, (0, pr, 0, pb), mode="replicate")
@@ -302,7 +409,8 @@ def main_path_phase(results: dict):
             dpb_dec = dict(dpb_enc, ref_frame=dec["x_hat"])
         else:
             dpb_enc, dpb_dec = enc_dpb, dec_dpb
-    launches = bw.block_warp_nchw.launches
+    counts = _counts()
+    launches = counts["block_warp"]
     for row in per_frame:
         if not row["symbols_equal"]:
             raise AssertionError(f"frame {row['frame']}: rANS symbols differ")
@@ -314,7 +422,9 @@ def main_path_phase(results: dict):
     if launches < P_FRAMES:
         raise AssertionError(f"K1 launched {launches} times for {P_FRAMES} "
                              f"P-frames")
-    results["launches"] = {"block_warp": launches}
+    if counts["band_copy"]:
+        raise AssertionError("K2 launched on the codec path")
+    results["launches"] = {"runtimes": counts}
     results["frames"] = per_frame
 
     # one more P-frame (encode + decode) under torch.profiler: where the
@@ -345,6 +455,164 @@ def main_path_phase(results: dict):
                 for ms, n, k in rows[:10]]}), flush=True)
 
 
+CLI_FRAMES = 3
+CLI_SEQ = "synthetic_1080p"
+# per-frame keys of a YUV420 source's summary, as dcvc_tpu/runner/video.py
+# records them; dcvc_tpu/utils/results.py averages each over all / I / P
+# frames and, at --verbose 2, lists it per frame
+_FRAME_KEYS = ("bits", "bpp", "encoding_time", "decoding_time", "psnr_y",
+               "psnr_u", "psnr_v", "psnr")
+
+
+def _jax_summary_keys() -> set:
+    keys = {"frame_num", "i_frame_num", "p_frame_num", "frame_type",
+            "test_time", "name"}
+    for k in _FRAME_KEYS:
+        keys |= {f"ave_all_frame_{k}", f"ave_i_frame_{k}",
+                 f"ave_p_frame_{k}", f"frame_{k}"}
+    return keys
+
+
+def _write_yuv_sequence(path: str, n_frames: int):
+    """The panning content of _content as 8-bit planar YUV420."""
+    import numpy as np
+
+    from dcvc_tpu_torch.utils import color
+
+    with open(path, "wb") as f:
+        for x in _content(n_frames):
+            y, uv = color.rgb_to_ycbcr420(x[0].permute(1, 2, 0).cpu().numpy())
+            for plane in (y, uv):
+                f.write(np.clip(np.rint(plane * 255), 0, 255)
+                        .astype(np.uint8).tobytes())
+
+
+def _redecode_yuv(stream_dir: str, out_path: str):
+    """Decode the CLI's .bin files again in a fresh runtime pair (built as
+    the CLI builds them) and write the recon as the CLI's writer does."""
+    import torch
+
+    from dcvc_tpu_torch.models.registry import build
+    from dcvc_tpu_torch.ops.warp import default_coding_warp_modes
+    from dcvc_tpu_torch.utils import color, stream
+    from dcvc_tpu_torch.utils.video_io import YUVWriter
+
+    od, mc, me = default_coding_warp_modes(torch.device("cuda"))
+    _, irt = build("intra_dc")
+    _, prt = build("dmc_dc", od_warp_mode=od, mc_warp_mode=mc,
+                   me_warp_mode=me)
+    irt.update()
+    prt.update()
+    writer = YUVWriter(out_path, WIDTH, HEIGHT)
+    dpb = None
+    for i in range(CLI_FRAMES):
+        path = os.path.join(stream_dir, f"{CLI_SEQ}_{i}.bin")
+        if i == 0:
+            h, w, qc, qi, s = stream.decode_i(path)
+            x_hat = irt.decompress(s, h, w, qc, qi)["x_hat"].clamp(0.0, 1.0)
+            dpb = {"ref_frame": x_hat, "ref_feature": None,
+                   "ref_mv_feature": None, "ref_y": None, "ref_mv_y": None}
+        else:
+            qc, qi, fi, s = stream.decode_p(path)
+            dpb = dict(prt.decompress(dpb, s, HEIGHT, WIDTH, qc, qi, fi)["dpb"])
+            x_hat = dpb["ref_frame"] = dpb["ref_frame"].clamp(0.0, 1.0)
+        recon = x_hat[0, :, :HEIGHT, :WIDTH].permute(1, 2, 0).cpu().numpy()
+        writer.write_one_frame(*color.ycbcr444_to_420(recon))
+    writer.close()
+
+
+def cli_phase(results: dict):
+    """The port's video CLI in process on a 1080p YUV420 sequence."""
+    import tempfile
+
+    from dcvc_tpu_torch.tools import test_video
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_yuv_sequence(os.path.join(tmp, CLI_SEQ + ".yuv"), CLI_FRAMES)
+        cfg_path = os.path.join(tmp, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump({"root_path": tmp, "test_classes": {"smoke": {
+                "test": 1, "base_path": "", "src_type": "yuv420",
+                "sequences": {CLI_SEQ: {"width": WIDTH, "height": HEIGHT,
+                                        "frames": CLI_FRAMES,
+                                        "gop": 32}}}}}, f)
+
+        def run(tag, *extra):
+            args = ["--test_config", cfg_path, "--force_frame_num",
+                    str(CLI_FRAMES), "--rate_num", "1", "--q_indexes", "32",
+                    "--stream_path", os.path.join(tmp, tag), "--output_path",
+                    os.path.join(tmp, tag + ".json"), "--verbose", "2", *extra]
+            _reset_counts()
+            t = time.time()
+            res = test_video.main(args)
+            wall = time.time() - t
+            counts = _counts()
+            if set(res) != {CLI_SEQ} or set(res[CLI_SEQ]) != {"rate_0"}:
+                raise AssertionError(f"cli {tag}: results nesting {res.keys()}")
+            sm = res[CLI_SEQ]["rate_0"]
+            if set(sm) != _jax_summary_keys():
+                raise AssertionError(f"cli {tag}: summary keys differ from "
+                                     f"the JAX schema: "
+                                     f"{set(sm) ^ _jax_summary_keys()}")
+            frames = [{"frame": i, "type": "PI"[sm["frame_type"][i] == 0],
+                       "encode_ms": sm["frame_encoding_time"][i] * 1e3,
+                       "decode_ms": sm["frame_decoding_time"][i] * 1e3,
+                       "bpp": sm["frame_bpp"][i], "psnr": sm["frame_psnr"][i]}
+                      for i in range(sm["frame_num"])]
+            if sm["frame_num"] != CLI_FRAMES or not all(
+                    math.isfinite(r["psnr"]) and r["bpp"] > 0 for r in frames):
+                raise AssertionError(f"cli {tag}: bad frames {frames}")
+            if counts["block_warp"] < sm["p_frame_num"]:
+                raise AssertionError(f"cli {tag}: K1 launched "
+                                     f"{counts['block_warp']} times for "
+                                     f"{sm['p_frame_num']} P-frames")
+            if counts["band_copy"]:
+                raise AssertionError(f"cli {tag}: K2 launched on the codec path")
+            row = {"wall_s": wall, "launches": counts, "frames": frames}
+            print(f"cli {tag}: {json.dumps(row)}", flush=True)
+            runs[tag] = row
+
+        def bins(tag):
+            return [open(os.path.join(tmp, tag, f"{CLI_SEQ}_{i}.bin"),
+                         "rb").read() for i in range(CLI_FRAMES)]
+
+        run("write_stream", "--write_stream", "1", "--decoded_frame_path",
+            os.path.join(tmp, "decoded"))
+        _redecode_yuv(os.path.join(tmp, "write_stream"),
+                      os.path.join(tmp, "redecoded", CLI_SEQ))
+        with open(os.path.join(tmp, "decoded", CLI_SEQ + ".yuv"), "rb") as f:
+            cli_yuv = f.read()
+        with open(os.path.join(tmp, "redecoded", CLI_SEQ + ".yuv"), "rb") as f:
+            again = f.read()
+        if len(cli_yuv) != CLI_FRAMES * HEIGHT * WIDTH * 3 // 2 \
+                or cli_yuv != again:
+            raise AssertionError("re-decoded recon YUV differs from the CLI's")
+        run("aligned_enc", "--write_stream", "1", "--aligned_enc", "1")
+        if bins("aligned_enc") != bins("write_stream"):
+            raise AssertionError("--aligned_enc 1 wrote other .bin files")
+        run("estimated_bits", "--write_stream", "0")
+        print("cli checks: re-decoded recon YUV byte-equal to the CLI's; "
+              "aligned and direct .bin files identical "
+              f"({[len(b) for b in bins('write_stream')]} bytes)", flush=True)
+    results["cli"] = runs
+
+
+def diag_phase(results: dict):
+    """K2 through the port's probe tool (its own path)."""
+    from dcvc_tpu_torch.tools import diag_dma
+
+    _reset_counts()
+    row = diag_dma.run()
+    counts = _counts()
+    if counts["band_copy"] < 1:
+        raise AssertionError("the probe tool did not launch K2")
+    if counts["block_warp"]:
+        raise AssertionError("the probe tool launched K1")
+    row["launches"] = counts["band_copy"]
+    results["diag_dma"] = row
+
+
 def main() -> int:
     import torch
 
@@ -352,45 +620,72 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from dcvc_tpu_torch.device import exact_numerics
+    from dcvc_tpu_torch.device import card_line, exact_numerics
+    from dcvc_tpu_torch.ops import band_copy as bc
     from dcvc_tpu_torch.ops import block_warp as bw
     from dcvc_tpu_torch.ops import rans
 
-    print(_card_line(), flush=True)
+    print(card_line(), flush=True)
     exact_numerics()
     t = time.time()
-    with ThreadPoolExecutor(2) as ex:
-        builds = [ex.submit(bw.load_kernel), ex.submit(rans._load_library)]
+    with ThreadPoolExecutor(3) as ex:
+        builds = [ex.submit(bw.load_kernel), ex.submit(bc.load_kernel),
+                  ex.submit(rans._load_library)]
         for f in builds:
             f.result()
-    print(f"build: {time.time() - t:.1f} s (block_warp.cu + rans.cpp)",
-          flush=True)
-    for line in bw.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
+    print(f"build: {time.time() - t:.1f} s (block_warp.cu + band_copy.cu + "
+          f"rans.cpp)", flush=True)
+    for name, log in (("block_warp", bw.build_log), ("band_copy", bc.build_log)):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
 
     results: dict = {}
     kernel_phase(results)
+    band_copy_phase(results)
+    tile_warp_phase(results)
     reference_phase()
     main_path_phase(results)
+    cli_phase(results)
+    diag_phase(results)
 
-    k = results["block_warp"]
-    od = k["od_1080p_f32"]
+    k1 = results["block_warp"]
+    od = k1["od_1080p_f32"]
+    k2 = results["band_copy"]["tool_720x1408x16x4"]
+    cli_k1 = sum(r["launches"]["block_warp"] for r in results["cli"].values())
     print(json.dumps({"kernels": [{
         "name": "block_warp", "route": "cuda",
         "source": "dcvc_tpu_torch/csrc/block_warp.cu",
         "replaces": "dcvc_tpu/ops/block_warp.py:164",
         "tpu_kernel": "dcvc_tpu/ops/block_warp.py:_kernel",
-        "launches": results["launches"]["block_warp"],
-        "max_abs_err": max(r["max_abs_err"] for n, r in k.items()
+        "launches": cli_k1,
+        "launches_by_path": {
+            "runtimes": results["launches"]["runtimes"]["block_warp"],
+            "cli": cli_k1, "diag_dma": 0},
+        "max_abs_err": max(r["max_abs_err"] for n, r in k1.items()
                            if n.endswith("f32")),
-        "max_abs_err_bf16": max(r["max_abs_err"] for n, r in k.items()
+        "max_abs_err_bf16": max(r["max_abs_err"] for n, r in k1.items()
                                 if n.endswith("bf16")),
         "ms": od["ms"], "plain_ms": od["plain_ms"],
         "bound_ms": od["bound_ms"], "bound_by": od["bound_by"],
         "library_ms": None,
         "grid_sample_exact_warp_ms": od["grid_sample_exact_warp_ms"],
-        "ms_bf16": k["od_1080p_bf16"]["ms"],
+        "ms_bf16": k1["od_1080p_bf16"]["ms"],
+    }, {
+        "name": "band_copy", "route": "cuda",
+        "source": "dcvc_tpu_torch/csrc/band_copy.cu",
+        "replaces": "tools/diag_dma.py:27",
+        "tpu_kernel": "tools/diag_dma.py:make_bench.kernel",
+        "launches": results["diag_dma"]["launches"],
+        "launches_by_path": {"runtimes": 0, "cli": 0,
+                             "diag_dma": results["diag_dma"]["launches"]},
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in results["band_copy"].values()),
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "requested_bound_ms": k2["requested_bound_ms"],
+        "library_ms": k2["index_select_ms"],
+        "tool_ms": results["diag_dma"]["ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

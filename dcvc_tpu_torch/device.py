@@ -13,6 +13,8 @@ and cuDNN's autotuner may pick different algorithms for the two sides.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -22,6 +24,15 @@ def exact_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them (every
+    time on the card is reported beside it)."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return res.stdout.strip().splitlines()[0]
 
 
 def resolve_device(device=None) -> torch.device:

@@ -16,6 +16,8 @@ Frames and DPB tensors are NCHW. Runtimes run on ``cuda`` unless built with
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -99,14 +101,18 @@ class _RuntimeBase:
         return self._from_host_nhwc(
             self.gaussian.decode_with_indexes(self.entropy_coder, idx))
 
-    def _decode_four_part(self, scales_step, params, channels: int):
-        """Serial four-part decode: scales -> rANS -> update, steps 0..3."""
+    def _decode_four_part(self, scales_step, params, channels: int,
+                          sym_source=None):
+        """Serial four-part decode: scales -> rANS -> update, steps 0..3.
+        ``sym_source(scales_r)`` supplies each step's symbol plane: host
+        rANS by default; the aligned encode feeds known symbols."""
+        sym_source = sym_source or self._host_decode
         B, _, yh, yw = params.shape
         so_far = torch.zeros(B, channels, yh, yw, dtype=params.dtype,
                              device=params.device)
         for step in range(4):
             scales_r, means_parts = scales_step(params, so_far, step)
-            y_q_r = self._host_decode(scales_r)
+            y_q_r = sym_source(scales_r)
             so_far = priors.four_part_decode_update(
                 params, so_far, y_q_r, means_parts, step)
         return so_far
@@ -126,6 +132,10 @@ class DmcRuntime(_RuntimeBase):
         self.fine_q = get_dmc_q_tables(self.module)
         self._q_anchor = {n: getattr(self.module, n).detach().cpu().numpy()
                           .reshape(-1) for n in Q_SCALE_NAMES}
+        # decoder-aligned coding indexes (_aligned_indexes): opt in, as in
+        # the JAX package; f32 with deterministic cuDNN codes the same
+        # indexes either way
+        self.aligned_enc = os.environ.get("DCVC_TPU_ALIGNED_ENC") == "1"
 
     def _z_estimators(self):
         return ["bit_estimator_z", "bit_estimator_z_mv"]
@@ -138,24 +148,78 @@ class DmcRuntime(_RuntimeBase):
                 for k, n in names.items()}
 
     @torch.no_grad()
+    def forward_one_frame(self, x, dpb, q_in_ckpt: bool = False,
+                          q_index: int = 0, frame_idx: int = 0):
+        """Estimated-bits P-frame: ``{"dpb", "bit", "bpp", ...}``."""
+        qs = self.get_q_for_inference(q_in_ckpt, q_index)
+        return self.module(self._tensor(x), dpb, qs, frame_idx % 4)
+
+    @torch.no_grad()
     def compress(self, x, dpb, q_in_ckpt: bool, q_index: int, frame_idx: int):
         qs = self.get_q_for_inference(q_in_ckpt, q_index)
         x = self._tensor(x)
         out = self.module.compress_device(x, dpb, qs, frame_idx)
         planes = out["mv_y_q_planes"] + out["y_q_planes"]
         scales = out["mv_scales_planes"] + out["scales_planes"]
+        syms = [_symbols_nhwc(q) for q in planes]
+        if self.aligned_enc:
+            yh, yw = x.shape[2] // 16, x.shape[3] // 16
+            idx = self._aligned_indexes(out["mv_z_hat"], out["z_hat"],
+                                        np.concatenate(syms), dpb, qs,
+                                        frame_idx, yh, yw)
+        else:
+            idx = [_to_host_nhwc(self.gaussian.build_indexes(s)).reshape(-1)
+                   for s in scales]
         self.entropy_coder.reset()
         self._encode_z("bit_estimator_z_mv", out["mv_z_hat"])
         self._encode_z("bit_estimator_z", out["z_hat"])
-        for q, s in zip(planes, scales):
-            self.gaussian.encode_with_indexes(
-                self.entropy_coder, _symbols_nhwc(q),
-                _to_host_nhwc(self.gaussian.build_indexes(s)).reshape(-1))
+        for sym, ix in zip(syms, idx):
+            self.gaussian.encode_with_indexes(self.entropy_coder, sym, ix)
         self.entropy_coder.flush()
         return {
             "dpb": out["dpb"],
             "bit_stream": self.entropy_coder.get_encoded_stream(),
         }
+
+    def _decode_latents(self, mv_z_hat, z_hat, dpb, qs, frame_idx, yh, yw,
+                        sym_source=None):
+        """The decoder's chain from the z planes to the y latents: mv prior,
+        mv four-part decode, motion stage, y four-part decode."""
+        m = self.module
+        mv_params = m.decode_mv_prior(mv_z_hat, dpb["ref_mv_y"], yh, yw)
+        mv_sofar = self._decode_four_part(
+            lambda p, s, k: m.decode_scales_step(p, s, k, "mv"),
+            mv_params, CH_MV, sym_source)
+        y_params, contexts, mv_y_hat, mv_feature = m.decode_motion_stage(
+            mv_params, mv_sofar, qs["mv_dec"], dpb, z_hat, frame_idx, yh, yw)
+        y_sofar = self._decode_four_part(
+            lambda p, s, k: m.decode_scales_step(p, s, k, "y"),
+            y_params, G_CH["16x"], sym_source)
+        return y_params, y_sofar, contexts, mv_y_hat, mv_feature
+
+    def _aligned_indexes(self, mv_z_hat, z_hat, sym, dpb, qs, frame_idx,
+                         yh, yw):
+        """Decoder-identical coding indexes of all 8 four-part planes
+        (``dcvc_tpu/models/runtime.py:_aligned_indexes``): replays the
+        decoder's chain with the known symbols in place of rANS and records
+        the indexes it derives. The z planes and the symbols enter as fresh
+        NCHW f32 tensors, as the decoder receives them from the host."""
+        recorded = []
+        offset = 0
+
+        def sym_source(scales_r):
+            nonlocal offset
+            idx = _to_host_nhwc(self.gaussian.build_indexes(scales_r))
+            recorded.append(idx.reshape(-1))
+            n = idx.size
+            plane = sym[offset:offset + n].reshape(idx.shape)
+            offset += n
+            return self._from_host_nhwc(plane)
+
+        self._decode_latents(self._from_host_nhwc(_to_host_nhwc(mv_z_hat)),
+                             self._from_host_nhwc(_to_host_nhwc(z_hat)), dpb,
+                             qs, frame_idx, yh, yw, sym_source)
+        return recorded
 
     @torch.no_grad()
     def decompress(self, dpb, string, height, width, q_in_ckpt: bool,
@@ -167,16 +231,8 @@ class DmcRuntime(_RuntimeBase):
         yh, yw = get_downsampled_shape(height, width, 16)
         mv_z_hat = self._decode_z("bit_estimator_z_mv", (1, 64, zh, zw))
         z_hat = self._decode_z("bit_estimator_z", (1, G_CH["16x"], zh, zw))
-
-        mv_params = m.decode_mv_prior(mv_z_hat, dpb["ref_mv_y"], yh, yw)
-        mv_sofar = self._decode_four_part(
-            lambda p, s, k: m.decode_scales_step(p, s, k, "mv"),
-            mv_params, CH_MV)
-        y_params, contexts, mv_y_hat, mv_feature = m.decode_motion_stage(
-            mv_params, mv_sofar, qs["mv_dec"], dpb, z_hat, frame_idx, yh, yw)
-        y_sofar = self._decode_four_part(
-            lambda p, s, k: m.decode_scales_step(p, s, k, "y"),
-            y_params, G_CH["16x"])
+        y_params, y_sofar, contexts, mv_y_hat, mv_feature = \
+            self._decode_latents(mv_z_hat, z_hat, dpb, qs, frame_idx, yh, yw)
         x_hat, feature, y_hat = m.decode_recon_stage(
             y_params, y_sofar, contexts, qs["y_dec"])
         return {
@@ -217,6 +273,12 @@ class IntraDcRuntime(_RuntimeBase):
             qe = self.q_scale_enc_fine[q_index]
             qd = self.q_scale_dec_fine[q_index]
         return self._tensor(np.float32(qe)), self._tensor(np.float32(qd))
+
+    @torch.no_grad()
+    def forward(self, x, q_in_ckpt: bool = False, q_index: int = 0):
+        """Estimated-bits I-frame: ``{"x_hat", "bit", "bpp", ...}``."""
+        qe, qd = self.get_q_for_inference(q_in_ckpt, q_index)
+        return self.module(self._tensor(x), qe, qd)
 
     @torch.no_grad()
     def compress(self, x, q_in_ckpt: bool, q_index: int):

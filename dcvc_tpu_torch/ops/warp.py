@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .block_warp import _median_midpoint
+
 # The OffsetDiversity warp that the JAX package ships as its accelerator
 # inference default (dcvc_tpu/ops/warp.py: RD_GATED_BLOCK_MODE); the port
 # treats the card the same way.
@@ -43,18 +45,124 @@ def default_od_warp_mode(device: torch.device) -> str:
     return RD_GATED_BLOCK_MODE if device.type == "cuda" else "exact"
 
 
+def default_coding_warp_modes(device: torch.device) -> tuple:
+    """(od, mc, me) warp modes of the coding runtimes: the block kernel at
+    the OffsetDiversity site and exact mc / me warps on the card, exact
+    everywhere on the CPU (None means exact)."""
+    return default_od_warp_mode(device), None, None
+
+
+# maps per tile-warp chunk: the per-pixel int64 tap indexes are built for
+# one chunk of maps at a time, not for all 32 OffsetDiversity maps at once
+_TILE_CHUNK = 4
+
+
+def _tile_warp_batched(im, flow, T: int, R: int, base_mode: str):
+    """Row-tile warp core, NCHW f32; W a multiple of T.
+
+    Same arithmetic as ``dcvc_tpu/ops/warp.py:_tile_warp_batched``: each
+    1 x T run of a row takes an integer base (the rounded median or mean of
+    its flow), its window origin (ys, xs) is clamped into the edge-padded
+    frame and the clamp is folded back into an effective base; each
+    pixel's residual from that base is clamped to [-R, R - 1e-4) and
+    resolved by a 4-tap bilinear read inside the run's window of 2R + 2
+    packed rows (ys .. ys + 2R + 1) by K = T + 2R + 2 columns. The JAX
+    package gathers the whole window per run (one gather slice, its TPU
+    fast path) and weights it with one-hot rows; here each pixel gathers
+    only its 4 taps, horizontal combine first, as there."""
+    M, C, H, W = im.shape
+    nt = W // T
+    K = T + 2 * R + 2
+    pads = R + 1
+    Wp = W + pads + K
+    offt = flow.reshape(M, 2, H, nt, T)
+    if base_mode == "mean":
+        base = torch.round(offt.mean(dim=4))
+    elif base_mode == "median":
+        base = torch.round(_median_midpoint(offt))     # half to even
+    else:
+        raise ValueError(f"unknown tile base mode {base_mode!r}")
+    dev = im.device
+    bx, by = base[:, 0], base[:, 1]                     # [M, H, nt]
+    ys_raw = torch.arange(H, device=dev).view(1, H, 1) + by.to(torch.int32)
+    xs_raw = (torch.arange(nt, device=dev).view(1, 1, nt) * T
+              + bx.to(torch.int32) - R + pads)
+    ys = ys_raw.clamp(0, H - 1)
+    xs = xs_raw.clamp(0, Wp - K)
+    eff_x = bx - (xs_raw - xs).to(base.dtype)
+    eff_y = by - (ys_raw - ys).to(base.dtype)
+
+    def taps(f, eff):
+        r = torch.clamp(f - eff[..., None], -R, R - 1e-4)   # [M, H, nt, T]
+        f0 = torch.floor(r)
+        return (f0 + R).to(torch.int64), r - f0
+
+    ax, wx = taps(offt[:, 0], eff_x)
+    ay, wy = taps(offt[:, 1], eff_y)
+    j = torch.arange(T, device=dev)
+    # padded-frame coordinates of the top-left tap, then back into im
+    py = ys[..., None].to(torch.int64) + ay
+    px = xs[..., None].to(torch.int64) + j + ax
+    y0, y1 = (py - R).clamp(0, H - 1), (py + 1 - R).clamp(0, H - 1)
+    x0, x1 = (px - pads).clamp(0, W - 1), (px + 1 - pads).clamp(0, W - 1)
+    flat = im.reshape(M, C, H * W)
+
+    def gather(yy, xx):
+        idx = (yy * W + xx).reshape(M, 1, H * W).expand(M, C, H * W)
+        return torch.gather(flat, 2, idx).reshape(M, C, H, W)
+
+    wx = wx.reshape(M, 1, H, W)
+    wy = wy.reshape(M, 1, H, W)
+    top = gather(y0, x0) * (1 - wx) + gather(y0, x1) * wx
+    bot = gather(y1, x0) * (1 - wx) + gather(y1, x1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def tile_warp(im: torch.Tensor, flow: torch.Tensor, tile: int = 16,
+              residual: int = 2, base_mode: str = "median",
+              chunk: int | None = None) -> torch.Tensor:
+    """APPROXIMATE backward warp of ``im`` [M,C,H,W] by ``flow`` [M,2,H,W]
+    with one integer base per 1 x ``tile`` run of a row
+    (``dcvc_tpu/ops/warp.py:tile_warp``). It equals ``flow_warp`` wherever
+    every pixel's flow lies within ``residual`` of its run's base in both
+    axes; elsewhere the residual clamps. Computes in f32 (bf16 inputs are
+    cast up and the result back); the width is edge-padded to a multiple
+    of ``tile``; ``chunk`` maps at a time (default ``_TILE_CHUNK``) when
+    that divides M. The JAX tile warp is XLA, not Pallas, so plain PyTorch
+    is its port on every device."""
+    M, _, H, W = im.shape
+    out_dtype = im.dtype
+    im, flow = im.float(), flow.float()
+    pad_w = (-W) % tile
+    if pad_w:
+        im = F.pad(im, (0, pad_w, 0, 0), mode="replicate")
+        flow = F.pad(flow, (0, pad_w, 0, 0), mode="replicate")
+    if chunk is None:
+        chunk = _TILE_CHUNK
+    if chunk and M > chunk and M % chunk == 0:
+        out = torch.cat([_tile_warp_batched(a, b, tile, residual, base_mode)
+                         for a, b in zip(im.split(chunk), flow.split(chunk))])
+    else:
+        out = _tile_warp_batched(im, flow, tile, residual, base_mode)
+    out = out.to(out_dtype)
+    return out[..., :W] if pad_w else out
+
+
 def resolve_warp_fn(mode: str):
     """Map a warp-mode string to an NCHW ``(im, flow) -> warped`` callable.
 
     Modes: "exact" (flow_warp);
+    "tile[:T[,R[,mean|median]]]" — the row-tile approximation (tile_warp);
     "block[:Dh[,Rv[,BH[,BW[,mean|median|median4]]]]]" — the block warp
     (ops/block_warp.py: the CUDA kernel for CUDA tensors, its plain PyTorch
     version for CPU tensors).
     """
     if mode.startswith("tile"):
-        raise NotImplementedError(
-            "tile: warps are not ported yet (ROADMAP Queue 1, "
-            "'tile: warps and aligned_enc')")
+        spec = mode.split(":", 1)[1].split(",") if ":" in mode else []
+        T = int(spec[0]) if len(spec) >= 1 and spec[0] else 16
+        R = int(spec[1]) if len(spec) >= 2 else 2
+        base = spec[2] if len(spec) >= 3 else "median"
+        return lambda a, b: tile_warp(a, b, T, R, base)
     if mode.startswith("block"):
         from . import block_warp as bw
 

@@ -1,0 +1,51 @@
+"""Checkpoint loading for the DC models: the ``load_params`` role of
+``dcvc_tpu/utils/checkpoint.py``.
+
+Two formats give a port ``state_dict``:
+  * a published torch checkpoint (``.pth``, ``.pth.tar``, ``.pt``,
+    ``.ckpt``): the port keeps the reference's key names, so it loads as it
+    is (``weights_only=True``; a ``state_dict`` / ``net`` wrapper and a
+    ``module.`` prefix are unwrapped, as the reference's get_state_dict
+    does, DCVC-DC/src/utils/stream_helper.py:40-47);
+  * the JAX package's native ``.npz`` (its ``save_params``: path-joined
+    flax arrays), unflattened here and turned into a ``state_dict`` by
+    ``utils/convert.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .convert import dmc_from_jax, intra_dc_from_jax
+
+_FROM_JAX = {"intra_dc": intra_dc_from_jax, "dmc_dc": dmc_from_jax}
+TORCH_SUFFIXES = (".pth", ".pth.tar", ".pt", ".ckpt")
+
+
+def _unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        parts = path.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def load_state_dict(path: str, model: str) -> dict:
+    """A port ``state_dict`` for registry model ``model`` from ``path``."""
+    if model not in _FROM_JAX:
+        raise NotImplementedError(
+            f"checkpoints of {model!r} are not ported yet (ROADMAP Queue 1 "
+            f"item 13, the other generations)")
+    if path.endswith(TORCH_SUFFIXES):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        for wrapper in ("state_dict", "net"):
+            if wrapper in ckpt:
+                ckpt = ckpt[wrapper]
+        return {k.removeprefix("module."): v for k, v in ckpt.items()}
+    with np.load(path) as data:
+        tree = _unflatten({k: data[k] for k in data.files})
+    return _FROM_JAX[model](tree)

@@ -1,4 +1,5 @@
-"""In-memory bitstream containers of the DCVC-DC write-stream path.
+"""Bitstream containers of the DCVC-DC write-stream path, in memory and
+as ``.bin`` files.
 
 The port's own copy of ``dcvc_tpu/utils/stream.py``'s DC containers
 (parity target: DCVC-DC/src/utils/stream_helper.py:94-139, I/P headers with
@@ -9,8 +10,13 @@ stream_helper.py:41-45). Byte-identical to the JAX package's containers.
 from __future__ import annotations
 
 import struct
+from pathlib import Path
 
 import numpy as np
+
+
+def filesize(filepath: str) -> int:
+    return Path(filepath).stat().st_size
 
 
 def get_rounded_q(q_scale: float):
@@ -50,3 +56,20 @@ def unpack_p(data: bytes):
     frame_idx = data[1]
     length = struct.unpack(">I", data[2:6])[0]
     return q_in_ckpt, q_index, frame_idx, data[6:6 + length]
+
+
+def encode_i(height, width, q_in_ckpt, q_index, bit_stream, output):
+    Path(output).write_bytes(pack_i(height, width, q_in_ckpt, q_index,
+                                    bit_stream))
+
+
+def decode_i(inputpath):
+    return unpack_i(Path(inputpath).read_bytes())
+
+
+def encode_p(string, q_in_ckpt, q_index, frame_idx, output):
+    Path(output).write_bytes(pack_p(string, q_in_ckpt, q_index, frame_idx))
+
+
+def decode_p(inputpath):
+    return unpack_p(Path(inputpath).read_bytes())

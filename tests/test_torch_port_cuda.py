@@ -7,11 +7,13 @@ one). Run on the card with:
 the machine with the card does not need.) The block-warp kernel is held
 against its plain PyTorch version on the card: the same arithmetic with
 each op rounded separately, so f32 and bf16 outputs agree exactly (atol 0).
+The band-copy kernel copies values, so it too agrees exactly.
 """
 
 import pytest
 import torch
 
+from dcvc_tpu_torch.ops import band_copy as bc
 from dcvc_tpu_torch.ops import block_warp as bw
 
 pytestmark = pytest.mark.cuda
@@ -75,3 +77,21 @@ def test_runtime_roundtrip_on_card(cuda):
     assert bw.block_warp_nchw.launches == before + 2
     for k, v in c["dpb"].items():
         assert torch.equal(v, d["dpb"][k]), k
+
+
+@pytest.mark.parametrize("H,Wp,C,A", [
+    (720, 1408, 16, 4),    # the probe's shape: 16-byte copies, 6 chunks/band
+    (16, 130, 3, 4),       # Wp % 4 != 0: 4-byte copies
+    (16, 17000, 2, 2),     # band row 0 spans two 64 KiB chunks
+])
+def test_band_copy_kernel_matches_plain(cuda, H, Wp, C, A):
+    from dcvc_tpu_torch.tools.diag_dma import make_inputs
+
+    src, by = make_inputs(H, Wp, C, A, cuda)
+    by[0], by[-1] = 0, H - 1
+    before = bc.band_copy.launches
+    out = bc.band_copy(src, by, A)
+    torch.cuda.synchronize()
+    assert bc.band_copy.launches == before + 1
+    torch.testing.assert_close(out, bc.band_copy_plain(src, by), atol=0,
+                               rtol=0)

@@ -5,6 +5,8 @@
   fresh interpreter.
 * Entry points run on the card unless asked for the CPU: without CUDA and
   without device="cpu" they raise.
+* The runner, the CLI and chip_smoke.py import without Pillow (the machine
+  with the card has none; only PNG sources need it).
 """
 
 import ast
@@ -79,3 +81,38 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         DmcRuntime(module)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_runner_cli_and_chip_smoke_load_no_pil():
+    code = (
+        "import importlib, sys\n"
+        "for m in ['dcvc_tpu_torch.runner.video', "
+        "'dcvc_tpu_torch.tools.test_video', 'chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'PIL' or m.startswith('PIL.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_registry_and_cli_raise_without_cuda(monkeypatch, tmp_path):
+    from dcvc_tpu_torch.models import registry
+    from dcvc_tpu_torch.tools import test_video
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registry.build("intra_dc", N=8, ch_a=8, ch_b=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registry.build("dmc_dc")
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text('{"test_classes": {}}')
+    with pytest.raises(SystemExit, match="device='cpu'"):
+        test_video.main(["--test_config", str(cfg)])
+    # with --device cpu the same (empty) config runs and writes its JSON
+    out = tmp_path / "res.json"
+    assert test_video.main(["--test_config", str(cfg), "--device", "cpu",
+                            "--force_intra", "--output_path", str(out)]) == {}
+    assert out.read_text().strip() == "{}"

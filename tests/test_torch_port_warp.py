@@ -79,8 +79,9 @@ def test_resize_and_shuffle_helpers_match_jax(hw):
 
 def test_resolve_warp_fn_modes():
     assert twarp.resolve_warp_fn("exact") is twarp.flow_warp
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twarp.resolve_warp_fn("tile:32,2")
+    assert callable(twarp.resolve_warp_fn("tile:32,2"))
+    with pytest.raises(ValueError, match="unknown warp mode"):
+        twarp.resolve_warp_fn("bilinear")
     assert twarp.default_od_warp_mode(torch.device("cpu")) == "exact"
     assert twarp.default_od_warp_mode(torch.device("cuda")) == \
         "block:4,4,64,128,median4"
