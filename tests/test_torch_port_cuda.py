@@ -31,13 +31,22 @@ def cuda():
     ((2, 3, 24, 48), (4, 2, 8, 16)),
     ((3, 1, 17, 33), (4, 2, 8, 16)),        # pad-to-block path
     ((4, 3, 130, 260), (4, 4, 64, 128)),     # the OffsetDiversity block
+    ((3, 3, 130, 262), (4, 4, 64, 128)),     # border blocks, W % 4 != 0
+    ((2, 3, 20, 600), (8, 2, 8, 512)),       # the JAX default block
+    ((2, 1, 70, 136), (4, 4, 64, 128)),      # C = 1
+    ((2, 5, 70, 136), (4, 4, 64, 128)),      # C = 5: channel groups in f32
+    # 75 units a row (no shift); median4 sorts 2400 samples in shared
+    # memory, median's 38400 take the PyTorch prep
+    ((1, 2, 128, 300), (8, 2, 128, 300)),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(cuda, shape, blk, base_mode, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     M, C, H, W = shape
     im = torch.rand(shape, generator=g, device=cuda).to(dtype)
-    for scale, shift in [(0.5, 3.0), (8.0, 0.0), (0.3, -40.0)]:
+    # the last two shifts push whole windows to the clamp
+    for scale, shift in [(0.5, 3.0), (8.0, 0.0), (0.3, -40.0), (2.0, 300.0),
+                         (2.0, -300.0)]:
         flow = torch.randn(M, 2, H, W, generator=g, device=cuda) * scale + shift
         before = bw.block_warp_nchw.launches
         out = bw.block_warp_nchw(im, flow, *blk, base_mode)
@@ -46,6 +55,49 @@ def test_kernel_matches_plain(cuda, shape, blk, base_mode, dtype):
         plain = bw.block_warp_plain_nchw(im, flow, *blk, base_mode)
         assert out.dtype == dtype
         torch.testing.assert_close(out, plain, atol=0, rtol=0)
+
+
+def _prep_flows(M, H, W, device):
+    """Flows whose block medians need care: a checkerboard of 4x4 cells of
+    two values per component, so every even-count median averages two
+    distinct middle values, some of them exactly at .5 (round half to
+    even), and a noisy flow that pushes windows to the clamp."""
+    g = torch.Generator(device=device).manual_seed(3)
+    yy = torch.arange(H, device=device).view(H, 1) // 4
+    xx = torch.arange(W, device=device).view(1, W) // 4
+    cell = ((yy + xx) % 2 == 0).expand(M, H, W)
+    flows = []
+    for (a, b), (c, d) in [((1.2, 2.9), (-0.7, 0.4)),    # distinct middles
+                           ((1.0, 2.0), (2.0, 3.0)),     # 1.5 -> 2, 2.5 -> 2
+                           ((-3.0, -2.0), (-1.0, 0.0))]:  # -2.5, -0.5 -> -0
+        fx = torch.where(cell, torch.tensor(a, device=device),
+                         torch.tensor(b, device=device))
+        fy = torch.where(cell, torch.tensor(c, device=device),
+                         torch.tensor(d, device=device))
+        flows.append(torch.stack([fx, fy], 1).float())
+    flows.append(torch.randn(M, 2, H, W, generator=g, device=device) * 6.0
+                 + 30.0)
+    return flows
+
+
+@pytest.mark.parametrize("base_mode", ["median", "median4"])
+@pytest.mark.parametrize("shape,blk", [
+    ((3, 130, 260), (4, 4, 64, 128)),
+    ((2, 20, 600), (8, 2, 8, 512)),
+    ((2, 17, 33), (4, 2, 8, 16)),            # pad-to-block path
+])
+def test_card_prep_matches_block_prep(cuda, shape, blk, base_mode):
+    M, H, W = shape
+    Dh, Rv, BH, BW = blk
+    BH, BW = bw._block_dims(H, W, BH, BW)
+    for flow in _prep_flows(M, H, W, cuda):
+        card = bw._prep_card(flow, BH, BW, Dh, Rv, base_mode, 16)
+        torch.cuda.synchronize()
+        ref = bw._block_prep(flow, BH, BW, Dh, Rv, base_mode, 16)
+        assert card[4:] == ref[4:]
+        for a, b in zip(card[:4], ref[:4]):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
 def test_kernel_rejects_mismatched_flow(cuda):
