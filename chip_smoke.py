@@ -16,9 +16,13 @@ no result line):
      apart, the plain version and the exact warp (F.grid_sample, the
      yardstick: another function), with GB/s and the share of the bound;
   4. hold the band-copy kernel (K2) against its plain version (atol 0) at
-     the probe's shape (720 rows, [4, 16, 1408] f32 bands) and at an edge
-     shape with 4-byte copies; time kernel, plain version and
-     torch.index_select (the yardstick: it reads one channel, not the band);
+     the probe's shape (720 rows, [4, 16, 1408] f32 bands), an edge shape
+     with 4-byte copies, a shape with fewer row groups than SMs and
+     unequal chunks, and one-row single-channel bands; print each launch
+     plan, the ptxas registers and the kernel's time (CUDA-graph replay)
+     beside the unique-bytes and requested-bytes bounds; at the probe's
+     shape also time the plain version and torch.index_select (the
+     yardstick: it reads one channel, not the band);
   5. the tile warp (tile:32,2,median, plain PyTorch) at the OffsetDiversity
      shape, timed beside K1 and the exact warp, and its card-vs-CPU gap;
   6. check the card's model numerics against the CPU on a small input;
@@ -172,18 +176,36 @@ def kernel_phase(results: dict):
     results["block_warp"] = rows
 
 
+def _ptxas_registers(log: str) -> dict:
+    """Registers per K2 instance from the ptxas lines of its build log."""
+    regs, inst = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inst = "bulk" if "ILb1E" in line else "4-byte"
+        elif "registers" in line and inst:
+            regs[inst] = int(line.split("Used")[1].split()[0])
+    return regs
+
+
 def band_copy_phase(results: dict):
-    """K2 against its plain version (atol 0); fills results['band_copy']."""
+    """K2 against its plain version (atol 0) at four shapes, each with its
+    launch plan and time beside its two bounds; fills results['band_copy'].
+    ``ms`` is the kernel's card time (CUDA-graph replay), ``wrapper_ms``
+    the wrapper called back to back (the host's launch cost included)."""
     import torch
 
     from dcvc_tpu_torch.ops import band_copy as bc
-    from dcvc_tpu_torch.tools.diag_dma import make_inputs
+    from dcvc_tpu_torch.tools.diag_dma import graph_ms, make_inputs
 
     rows = {}
-    for name, (H, Wp, C, A) in [("tool_720x1408x16x4", (720, 1408, 16, 4)),
-                                ("edge_16x130x3x4", (16, 130, 3, 4))]:
+    for name, (H, Wp, C, A) in [
+            ("tool_720x1408x16x4", (720, 1408, 16, 4)),
+            ("edge_16x130x3x4", (16, 130, 3, 4)),       # 4-byte copies
+            # 8 row groups on 132 SMs; chunks of 46,848 / 46,864 B
+            ("uneven_64x1004x5x7", (64, 1004, 5, 7)),
+            ("thin_720x1408x1x1", (720, 1408, 1, 1))]:
         src, by = make_inputs(H, Wp, C, A, "cuda")
-        if name.startswith("edge"):
+        if not name.startswith("tool"):
             by[0], by[-1] = 0, H - 1          # the first and the last band
         out = bc.band_copy(src, by, A)
         torch.cuda.synchronize()
@@ -191,33 +213,41 @@ def band_copy_phase(results: dict):
         err = (out - plain).abs().max().item()
         if not (err == 0.0 and torch.isfinite(out).all()):
             raise AssertionError(f"band_copy {name}: max abs err {err} > 0")
+        plan = bc.plan_for(src, by, A, 8)
+        rows_touched = torch.unique(
+            (by.long()[:, None] + torch.arange(A, device="cuda"))
+            .reshape(-1)).numel()
+        unique = (rows_touched * C * Wp + H + H * Wp) * 4
+        requested = H * A * C * Wp * 4
+        # by is in range (checked above), so the timed calls skip the
+        # host-side range check
+        call = lambda: bc.band_copy(src, by, A, check_range=False)  # noqa: E731
+        ms = graph_ms(call)
         row = {"max_abs_err": err, "tol": 0.0,
-               "copies": "16-byte" if (C * Wp) % 4 == 0 else "4-byte"}
+               "copies": "bulk" if plan.bulk else "4-byte",
+               "ms": ms, "wrapper_ms": _time_ms(call, 50, 5),
+               "unique_bytes": unique,
+               "requested_band_bytes": requested,
+               "bound_ms": unique / HBM_BYTES_PER_S * 1e3,
+               "requested_bound_ms": requested / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes",
+               "share_of_bound": unique / HBM_BYTES_PER_S * 1e3 / ms,
+               "requested_gb_per_s": requested / ms / 1e6,
+               "plan": {"ctas": plan.grid, "stages": plan.stages,
+                        "chunks_per_band": plan.n_chunks,
+                        "chunk_bytes": sorted({plan.chunk(k)[1] for k in
+                                               range(plan.n_chunks)}),
+                        "ring_stages": plan.NST, "smem_bytes": plan.smem},
+               "sms": bc.sm_count(src.device),
+               "ptxas_registers": _ptxas_registers(bc.build_log)}
         if name.startswith("tool"):
-            # by is in range (checked above), so the timed calls skip the
-            # host-side range check
-            row["ms"] = _time_ms(lambda: bc.band_copy(
-                src, by, A, check_range=False), 50, 5)
-            row["plain_ms"] = _time_ms(lambda: bc.band_copy_plain(src, by),
-                                       50, 5)
+            row["plain_ms"] = graph_ms(lambda: bc.band_copy_plain(src, by))
             src0 = src[:, 0]
-            row["index_select_ms"] = _time_ms(
-                lambda: torch.index_select(src0, 0, by), 50, 5)
-            rows_touched = torch.unique(
-                (by.long()[:, None] + torch.arange(A, device="cuda"))
-                .reshape(-1)).numel()
-            unique = (rows_touched * C * Wp + H + H * Wp) * 4
-            requested = H * A * C * Wp * 4
-            row.update({
-                "unique_bytes": unique, "requested_band_bytes": requested,
-                "bound_ms": unique / HBM_BYTES_PER_S * 1e3,
-                "requested_bound_ms": requested / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes",
-                "share_of_bound": unique / HBM_BYTES_PER_S * 1e3 / row["ms"],
-                "grid_ctas": H // 8, "sms": torch.cuda.get_device_properties(
-                    0).multi_processor_count})
+            row["index_select_ms"] = graph_ms(
+                lambda: torch.index_select(src0, 0, by))
         rows[name] = row
         print(f"band_copy {name}: {json.dumps(row)}", flush=True)
+        del src, by, out, plain
     results["band_copy"] = rows
 
 
@@ -707,7 +737,11 @@ def main() -> int:
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "requested_bound_ms": k2["requested_bound_ms"],
         "library_ms": k2["index_select_ms"],
+        "share_of_bound": k2["share_of_bound"],
+        "wrapper_ms": k2["wrapper_ms"], "plan": k2["plan"],
+        "ptxas_registers": k2["ptxas_registers"],
         "tool_ms": results["diag_dma"]["ms"],
+        "tool_ns_per_band": results["diag_dma"]["ns_per_band"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

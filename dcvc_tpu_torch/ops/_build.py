@@ -31,12 +31,14 @@ def nvcc_path() -> str:
 def build_shared(src: Path, name: str, compiler: list[str]) -> tuple[Path, str]:
     """Compile ``src`` with ``compiler + [-o out, src]`` unless a library
     built from the same source and command exists. Returns (library path,
-    compiler output; empty when the library was already built)."""
+    compiler output). The output is kept beside the library (``.log``), so
+    a library built earlier still reports its ``ptxas`` lines."""
     src = Path(src)
     key = hashlib.sha256(src.read_bytes() + " ".join(compiler).encode())
     out = BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
+    log = out.with_suffix(".log")
     if out.exists():
-        return out, ""
+        return out, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -45,8 +47,13 @@ def build_shared(src: Path, name: str, compiler: list[str]) -> tuple[Path, str]:
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"building {src.name} failed:\n{res.stderr}")
+        text = res.stdout + res.stderr
+        log_tmp = f"{tmp}.log"
+        Path(log_tmp).write_text(text)
+        os.replace(log_tmp, log)      # the log first: the library marks done
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, res.stdout + res.stderr
+        for path in (tmp, f"{tmp}.log"):
+            if os.path.exists(path):
+                os.unlink(path)
+    return out, text

@@ -83,8 +83,13 @@ def test_block_matches_flax(name):
     rng = np.random.default_rng(0)
     x = rng.normal(0, 1, (1, 16, 20, 16)).astype(np.float32)   # NHWC
     jm = make_j()
-    params = jax.jit(jm.init)(jax.random.PRNGKey(3), jnp.asarray(x))
-    ref = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x)))
+
+    def init_apply(key, inp):   # one compiled program, not two
+        params = jm.init(key, inp)
+        return params, jm.apply(params, inp)
+
+    params, ref = jax.jit(init_apply)(jax.random.PRNGKey(3), jnp.asarray(x))
+    ref = np.asarray(ref)
     m = FlaxToTorch(jax.tree_util.tree_map(np.asarray, params))
     mapping(m)
     tm = make_t(x.shape[-1])

@@ -6,9 +6,12 @@ package with ``dcvc_tpu/utils/port_dc.py`` (the converter its own CLI uses
 for published checkpoints); this skips the JAX models' ~60 s init, and
 ``tests/test_torch_port_runner.py`` covers the other direction. They are
 saved as the JAX package's native ``.npz`` (``save_params``) and as a port
-``.pth``. The JAX ``run_sequence`` codes a 96x64 YUV420 sequence of 3
-frames (I, P, P) with them; the CLI, loading either file, must write the
+``.pth``. The JAX ``run_sequence`` codes a 96x64 YUV420 sequence of 2
+frames (I, P) with them; the CLI, loading either file, must write the
 same ``.bin`` files byte for byte and a results JSON with the same keys.
+(Chained P-frames through the same runner are
+tests/test_torch_port_runner.py's subject; a third frame here cost a
+second P-frame program in both packages and tested nothing new.)
 """
 
 import json
@@ -34,7 +37,7 @@ from dcvc_tpu_torch.tools import test_video as cli
 from dcvc_tpu_torch.utils import color
 
 ROOT = Path(__file__).resolve().parent.parent
-H, W, FRAMES, Q = 64, 96, 3, 32
+H, W, FRAMES, Q = 64, 96, 2, 32
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -131,19 +131,61 @@ def test_runtime_roundtrip_on_card(cuda):
         assert torch.equal(v, d["dpb"][k]), k
 
 
+@pytest.mark.parametrize("rows_per_step", [1, 8, 16])
 @pytest.mark.parametrize("H,Wp,C,A", [
-    (720, 1408, 16, 4),    # the probe's shape: 16-byte copies, 6 chunks/band
-    (16, 130, 3, 4),       # Wp % 4 != 0: 4-byte copies
-    (16, 17000, 2, 2),     # band row 0 spans two 64 KiB chunks
+    (720, 1408, 16, 4),    # the probe's shape: bulk copies, 7 chunks/band
+    (16, 130, 3, 4),       # C * Wp * 4 % 16 != 0: 4-byte copies
+    (64, 1004, 5, 7),      # 8 row groups; chunks 46,848 / 46,864 B
+    (720, 1408, 1, 1),     # one-row, one-channel bands: 1 chunk each
+    (16, 20000, 2, 2),     # band row 0 spans two chunks
 ])
-def test_band_copy_kernel_matches_plain(cuda, H, Wp, C, A):
+def test_band_copy_kernel_matches_plain(cuda, H, Wp, C, A, rows_per_step):
     from dcvc_tpu_torch.tools.diag_dma import make_inputs
 
     src, by = make_inputs(H, Wp, C, A, cuda)
-    by[0], by[-1] = 0, H - 1
-    before = bc.band_copy.launches
-    out = bc.band_copy(src, by, A)
+    for first, last in [(0, H - 1), (H, 0)]:   # both ends of src
+        by[0], by[-1] = first, last
+        before = bc.band_copy.launches
+        out = bc.band_copy(src, by, A, rows_per_step)
+        torch.cuda.synchronize()
+        assert bc.band_copy.launches == before + 1
+        torch.testing.assert_close(out, bc.band_copy_plain(src, by), atol=0,
+                                   rtol=0)
+    plan = bc.plan_for(src, by, A, rows_per_step)
+    assert plan.grid == min(plan.stages, bc.sm_count(src.device))
+
+
+def test_band_copy_kernel_misaligned_src_takes_4_byte_copies(cuda):
+    from dcvc_tpu_torch.tools.diag_dma import make_inputs
+
+    base, by = make_inputs(64, 1004, 5, 7, cuda)
+    flat = torch.empty(base.numel() + 1, device=cuda)
+    src = flat[1:].view(base.shape)            # 4 bytes past 16-byte alignment
+    src.copy_(base)
+    assert not bc.plan_for(src, by, 7, 8).bulk
+    out = bc.band_copy(src, by, 7)
     torch.cuda.synchronize()
-    assert bc.band_copy.launches == before + 1
+    torch.testing.assert_close(out, bc.band_copy_plain(base, by), atol=0,
+                               rtol=0)
+
+
+def test_band_copy_refused_shared_memory_raises(cuda):
+    """A launch the card refuses (here: more dynamic shared memory than a
+    CTA may have) raises; the wrapper does not fall back to the plain
+    version, counts no launch, and the next launch works."""
+    import dataclasses
+
+    from dcvc_tpu_torch.tools.diag_dma import make_inputs
+
+    src, by = make_inputs(720, 1408, 16, 4, cuda)
+    plan = bc.plan_for(src, by, 4, 8)
+    big = dataclasses.replace(plan, slot_bytes=plan.slot_bytes + 8192)
+    assert big.smem > bc.SMEM_MAX
+    before = bc.band_copy.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bc._launch(src, by, 4, 8, big)
+    assert bc.band_copy.launches == before
+    out = bc.band_copy(src, by, 4)
+    torch.cuda.synchronize()
     torch.testing.assert_close(out, bc.band_copy_plain(src, by), atol=0,
                                rtol=0)

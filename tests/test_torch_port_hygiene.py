@@ -10,6 +10,7 @@
 """
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -44,22 +45,37 @@ def test_source_imports_no_jax(path):
         assert not bad, f"{path.name} imports {bad}"
 
 
-def test_import_all_modules_loads_no_jax():
+@pytest.fixture(scope="module")
+def fresh_imports():
+    """One fresh interpreter for both import checks (it costs seconds to
+    start with torch): it first imports the runner, the CLI and
+    chip_smoke.py and lists the PIL modules then loaded, then imports every
+    module of the package and lists the JAX ones."""
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
             for p in PKG.rglob("*.py")]
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m for m in mods]
     code = (
-        "import importlib, sys\n"
+        "import importlib, json, sys\n"
+        "def loaded(names):\n"
+        "    return [m for m in sys.modules if any(\n"
+        "        m == f or m.startswith(f + '.') for f in names)]\n"
+        "for m in ['dcvc_tpu_torch.runner.video', "
+        "'dcvc_tpu_torch.tools.test_video', 'chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "pil = loaded(['PIL'])\n"
         f"for m in {sorted(mods) + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
-        f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + '.') "
-        f"for f in {FORBIDDEN!r})]\n"
-        "assert not bad, bad\n"
-        "print('ok', len(sys.modules))\n")
+        f"print(json.dumps({{'pil': pil, 'jax': loaded({FORBIDDEN!r}), "
+        "'modules': len(sys.modules)}))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.startswith("ok")
+    return json.loads(res.stdout.splitlines()[-1])
+
+
+def test_import_all_modules_loads_no_jax(fresh_imports):
+    assert not fresh_imports["jax"], fresh_imports["jax"]
+    assert fresh_imports["modules"] > 0
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -83,19 +99,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_runner_cli_and_chip_smoke_load_no_pil():
-    code = (
-        "import importlib, sys\n"
-        "for m in ['dcvc_tpu_torch.runner.video', "
-        "'dcvc_tpu_torch.tools.test_video', 'chip_smoke']:\n"
-        "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'PIL' or m.startswith('PIL.')]\n"
-        "assert not bad, bad\n"
-        "print('ok')\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr
-    assert res.stdout.startswith("ok")
+def test_runner_cli_and_chip_smoke_load_no_pil(fresh_imports):
+    assert not fresh_imports["pil"], fresh_imports["pil"]
 
 
 def test_registry_and_cli_raise_without_cuda(monkeypatch, tmp_path):

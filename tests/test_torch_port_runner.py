@@ -1,11 +1,14 @@
 """Port GOP runner (dcvc_tpu_torch/runner/video.py) against the JAX
 package's ``run_sequence``, on the CPU, with the same weights.
 
-One module fixture builds the JAX IntraNoAR (at the golden widths, N=32)
-and DMC (its fixed full widths) once and converts their params with
-utils/convert.py. Both packages code a 96x64 sequence of 3 frames (I, P, P)
-from PNG and from YUV420 sources, with the OffsetDiversity block warp
-(``block:4,4,64,128,median4``) on both sides.
+One module fixture makes seeded port weights for IntraNoAR (at the golden
+widths, N=32) and DMC (its fixed full widths; the same seed as
+tests/test_torch_port_cli.py) and carries them to the JAX package with its
+own converter (``dcvc_tpu/utils/port_dc.py``), which skips the JAX models'
+init; tests/test_torch_port_intra.py and tests/test_torch_port_dmc.py cover
+the other direction (utils/convert.py). Both packages code a 96x64 sequence
+of 3 frames (I, P, P) from PNG and from YUV420 sources, with the
+OffsetDiversity block warp (``block:4,4,64,128,median4``) on both sides.
 
 Tolerances: write-stream ``.bin`` files byte-identical and per-frame bits
 equal; PSNR within 1e-3 dB (reconstructions agree to ~1e-6, f32 convolutions
@@ -15,8 +18,6 @@ sums ~10^4 f32 log-probabilities per frame).
 
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,11 +28,11 @@ from dcvc_tpu.models.runtime import DmcRuntime as JDmcRuntime
 from dcvc_tpu.models.runtime import IntraDcRuntime as JIntraDcRuntime
 from dcvc_tpu.models.video_dc import DMC as JDMC
 from dcvc_tpu.runner import video as jvideo
+from dcvc_tpu.utils import port_dc
 from dcvc_tpu_torch.models.registry import build
 from dcvc_tpu_torch.runner import adapters
 from dcvc_tpu_torch.runner import video as tvideo
 from dcvc_tpu_torch.utils import color
-from dcvc_tpu_torch.utils.convert import dmc_from_jax, intra_dc_from_jax
 
 BLOCK = "block:4,4,64,128,median4"
 H, W, FRAMES = 64, 96, 3
@@ -72,23 +73,14 @@ def sources(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def pair():
-    ji = JIntraNoAR(**INTRA_WIDTHS)
-    jip = jax.jit(ji.init)(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
-                           jnp.ones(()), jnp.ones(()))
-    x0 = jnp.zeros((1, 64, 64, 3))
-    dpb0 = {"ref_frame": x0, "ref_feature": None, "ref_mv_feature": None,
-            "ref_y": None, "ref_mv_y": None}
-    qs = {k: jnp.ones(()) for k in ("mv_enc", "mv_dec", "y_enc", "y_dec")}
-    jpp = jax.jit(JDMC().init, static_argnums=(4,))(
-        jax.random.PRNGKey(1), x0, dpb0, qs, 0)
-    jrt = {"i": JIntraDcRuntime(ji, jip),
+    ti_mod, ti = build("intra_dc", seed=5, device="cpu", **INTRA_WIDTHS)
+    tp_mod, tp = build("dmc_dc", seed=6, device="cpu", od_warp_mode=BLOCK)
+    jip = port_dc.convert_intra_dc(
+        {k: v.numpy() for k, v in ti_mod.state_dict().items()})
+    jpp = port_dc.convert_dmc(
+        {k: v.numpy() for k, v in tp_mod.state_dict().items()})
+    jrt = {"i": JIntraDcRuntime(JIntraNoAR(**INTRA_WIDTHS), jip),
            "p": JDmcRuntime(JDMC(od_warp_mode=BLOCK), jpp)}
-    _, ti = build("intra_dc", device="cpu", **INTRA_WIDTHS,
-                  state_dict=intra_dc_from_jax(
-                      jax.tree_util.tree_map(np.asarray, jip)))
-    _, tp = build("dmc_dc", device="cpu", od_warp_mode=BLOCK,
-                  state_dict=dmc_from_jax(
-                      jax.tree_util.tree_map(np.asarray, jpp)))
     trt = {"i": adapters.adapt_i_runtime(ti), "p": adapters.adapt_p_runtime(tp)}
     for rt in (*jrt.values(), *trt.values()):
         rt.update(force=True)

@@ -9,6 +9,7 @@ near 1). A DMC with ``od_warp_mode="tile:32,2"`` in both packages codes one
 P-frame to byte-identical streams.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,8 +41,13 @@ def _nhwc(t):
     return t.permute(0, 2, 3, 1).float().numpy()
 
 
+# one compiled program per case: op-by-op dispatch of the JAX tile warp
+# took most of each case's time
+_jax_tile_warp = jax.jit(jwarp.tile_warp, static_argnums=(2, 3, 4))
+
+
 def _jax(im, flow, T, R, base, dtype=jnp.float32):
-    out = jwarp.tile_warp(jnp.asarray(im, dtype), jnp.asarray(flow), T, R, base)
+    out = _jax_tile_warp(jnp.asarray(im, dtype), jnp.asarray(flow), T, R, base)
     return np.asarray(out.astype(jnp.float32))
 
 
