@@ -38,12 +38,27 @@ no result line):
      recon YUV byte for byte), the same with --aligned_enc 1 (identical
      .bin files) and estimated bits;
   9. the K2 probe tool (dcvc_tpu_torch.tools.diag_dma.run) at its shape;
- 10. one JSON line per kernel, then the result line.
+ 10. the EVC runtimes at full width: evc_LL and evc_SS code one seeded
+     synthetic 1920x1080 image, edge-padded to 1088x1920 as the image CLI
+     pads, at q = get_rounded_q(0.85): compress -> encode_i_ushort_q ->
+     decode_i_ushort_q -> decompress by a fresh runtime, symbols equal on
+     both planes and z, recon gap <= 1e-5; bytes, bpp, encode / decode ms
+     (median of 3 after a warm-up), peak memory, one encode and one decode
+     under torch.profiler (device ms, busy share, top five kernels), and
+     the convolution FLOPs reckoned from the shapes beside the f32 peak;
+ 11. evc_scalable (4 S-grid encoders, L decoder) on a seeded 768x512
+     image: each encoder's RD cost, the chosen one, an exact round trip;
+ 12. the image CLI (dcvc_tpu_torch.tools.test_image, in process) on two
+     seeded 768x512 PNGs written by utils/png.py: evc_LL at 2 rates with
+     streams and MS-SSIM (every .bin decoded again by a fresh runtime must
+     give the CLI's recon exactly), then intra_dc at 1 rate with streams;
+ 13. one JSON line per kernel, then the result line.
 
-Every path (7, 8 and 9) runs with the kernels' launch counts set to 0 just
-before it and read just after; a path that launched none of its kernels
-fails. Launches made to compare a kernel with its plain version are not
-counted.
+Every path (7 to 12) runs with the kernels' launch counts set to 0 just
+before it and read just after. Paths 7, 8 and 9 fail if they launched none
+of their kernels; paths 10, 11 and 12 have no kernel (convolutions,
+elementwise ops and host rANS only) and fail if either count is not 0.
+Launches made to compare a kernel with its plain version are not counted.
 
 Imports nothing of JAX. Needs one card; without one it exits non-zero.
 """
@@ -283,7 +298,7 @@ def tile_warp_phase(results: dict):
     torch.cuda.empty_cache()
 
 
-def reference_phase():
+def reference_phase(_results=None):
     """The card's model numerics against the CPU on a small input (the CPU
     path is the one the test suite holds against the JAX package)."""
     import torch
@@ -330,13 +345,26 @@ def _content(n_frames: int):
             for i in range(n_frames)]
 
 
-class _SymbolTap:
-    """Records the symbol planes a runtime hands to rANS / gets back."""
+def _device_rows(averages) -> list:
+    """(device ms, count, name) per kernel of a torch.profiler run's
+    ``key_averages()``, largest first; device-side rows only (kernels,
+    copies): the CPU-side aten rows carry the same device time again."""
+    rows = [(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count, e.key)
+            for e in averages
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return sorted((r for r in rows if r[0] > 0), reverse=True)
 
-    def __init__(self, rt):
+
+class _SymbolTap:
+    """Records the symbol planes a runtime hands to rANS and the ones a
+    runtime (``dec_rt``, by default the same) gets back."""
+
+    def __init__(self, rt, dec_rt=None):
+        dec_rt = dec_rt or rt
         self.enc, self.dec = [], []
-        enc_y, dec_y = rt.gaussian.encode_with_indexes, rt.gaussian.decode_with_indexes
-        enc_z, dec_z = rt._encode_z, rt._decode_z
+        enc_y, dec_y = rt.gaussian.encode_with_indexes, dec_rt.gaussian.decode_with_indexes
+        enc_z, dec_z = rt._encode_z, dec_rt._decode_z
 
         def encode_y(coder, y_q, idx):
             self.enc.append(y_q.reshape(-1).copy())
@@ -359,8 +387,8 @@ class _SymbolTap:
             return out
 
         rt.gaussian.encode_with_indexes = encode_y
-        rt.gaussian.decode_with_indexes = decode_y
-        rt._encode_z, rt._decode_z = encode_z, decode_z
+        dec_rt.gaussian.decode_with_indexes = decode_y
+        rt._encode_z, dec_rt._decode_z = encode_z, decode_z
 
     def equal(self) -> bool:
         import numpy as np
@@ -484,13 +512,7 @@ def main_path_phase(results: dict):
         comp = prt.compress(x, dpb_enc, False, q_index, fi)
         prt.decompress(dpb_dec, comp["bit_stream"], hp, wp, False, q_index, fi)
         wall_ms = sync_ms(t)
-    # device-side rows only (kernels, copies): the CPU-side aten rows carry
-    # the same device time again
-    rows = [(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    rows = _device_rows(prof.key_averages())
     device_ms = sum(r[0] for r in rows)
     print("profile " + json.dumps({
         "what": "one P-frame compress + decompress, profiler on",
@@ -660,6 +682,315 @@ def diag_phase(results: dict):
     results["diag_dma"] = row
 
 
+EVC_Q = 0.85                # q_scale of the EVC phases, rounded to 1/100
+SCALABLE_H, SCALABLE_W = 512, 768
+
+
+def _no_kernel_launched(path: str) -> dict:
+    """The launch counts of a path that has no kernel: both must be 0."""
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"{path}: kernels launched {counts}")
+    return counts
+
+
+def _conv_flops(module, fn) -> float:
+    """FLOPs of every nn.Conv2d call inside ``fn()``, reckoned from the
+    shapes: 2 x output elements x (input channels / groups) x kh x kw."""
+    import torch.nn as nn
+
+    total = [0.0]
+
+    def hook(conv, inputs, out):
+        kh, kw = conv.kernel_size
+        total[0] += 2.0 * out.numel() * conv.in_channels / conv.groups * kh * kw
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, nn.Conv2d)]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def _conv_shapes(averages) -> list:
+    """Convolutions of a torch.profiler run recorded with shapes (its
+    ``key_averages(group_by_input_shape=True)``), largest device time
+    first."""
+    rows = [{"ms": getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0)) / 1e3,
+             "count": e.count, "input_shapes": e.input_shapes[:2]}
+            for e in averages if e.key == "aten::convolution"]
+    return sorted(rows, key=lambda r: -r["ms"])
+
+
+def _image(h: int, w: int, seed: int):
+    """Seeded synthetic RGB image in [0, 1], NCHW on the card: a smooth
+    texture with fine detail."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.rand(1, 3, h // 16 + 2, w // 16 + 2, generator=gen,
+                      device="cuda")
+    big = F.interpolate(base, size=(h, w), mode="bicubic", align_corners=False)
+    detail = 0.08 * torch.rand(1, 3, h, w, generator=gen, device="cuda")
+    return (big + detail).clamp(0, 1)
+
+
+def _evc_roundtrip(rt, dec_rt, tap, x, h, w, path):
+    """compress -> encode_i_ushort_q -> decode_i_ushort_q -> decompress by
+    ``dec_rt``; returns (bytes, encode ms, decode ms, recon gap, the
+    compress output)."""
+    import torch
+
+    from dcvc_tpu_torch.utils import stream
+
+    q, q_index = stream.get_rounded_q(EVC_Q)
+    t = time.time()
+    comp = rt.compress(x, q)
+    stream.encode_i_ushort_q(h, w, q_index, comp["bit_stream"], path)
+    torch.cuda.synchronize()
+    enc_ms = (time.time() - t) * 1e3
+    t = time.time()
+    hh, ww, qi, s = stream.decode_i_ushort_q(path)
+    dec = dec_rt.decompress(s, hh, ww, qi / 100)
+    torch.cuda.synchronize()
+    dec_ms = (time.time() - t) * 1e3
+    if not tap.equal():
+        raise AssertionError(f"{path}: rANS symbols differ")
+    gap = (comp["x_hat"] - dec["x_hat"]).abs().max().item()
+    if not (gap <= F32_TOL and torch.isfinite(dec["x_hat"]).all()
+            and dec["x_hat"].shape == x.shape):
+        raise AssertionError(f"{path}: recon gap {gap}")
+    with open(path, "rb") as f:
+        return f.read(), enc_ms, dec_ms, gap, comp
+
+
+def evc_phase(results: dict):
+    """EVC_LL and EVC_SS at full width on a 1080p image padded to 1088 as
+    the image CLI pads: encode, bytes, decode by a fresh runtime."""
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from dcvc_tpu_torch.models.evc import build_evc
+    from dcvc_tpu_torch.models.runtime import EvcCodecRuntime
+    from dcvc_tpu_torch.ops.warp import get_padding_size
+    from dcvc_tpu_torch.utils import stream
+
+    _, pr, _, pb = get_padding_size(HEIGHT, WIDTH, 64)
+    x = F.pad(_image(HEIGHT, WIDTH, 5), (0, pr, 0, pb), mode="replicate")
+    hp, wp = HEIGHT + pb, WIDTH + pr
+    q, _ = stream.get_rounded_q(EVC_Q)
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for variant in ("LL", "SS"):
+            steps = {}
+            t_step = time.time()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            module = build_evc(variant, seed=21)
+            rt, dec_rt = EvcCodecRuntime(module), EvcCodecRuntime(module)
+            rt.update()
+            dec_rt.update()
+            tap = _SymbolTap(rt, dec_rt)
+            path = os.path.join(tmp, f"evc_{variant}.bin")
+            steps["build_s"], t_step = time.time() - t_step, time.time()
+            _reset_counts()
+            runs = [_evc_roundtrip(rt, dec_rt, tap, x, HEIGHT, WIDTH, path)
+                    for _ in range(4)]               # one warm-up + 3
+            steps["roundtrips_s"], t_step = time.time() - t_step, time.time()
+            counts = _no_kernel_launched(f"evc_{variant}")
+            if any(r[0] != runs[0][0] for r in runs):
+                raise AssertionError(f"evc_{variant}: streams differ between "
+                                     f"runs")
+            peak = torch.cuda.max_memory_allocated()
+            enc_ms = sorted(r[1] for r in runs[1:])[1]
+            dec_ms = sorted(r[2] for r in runs[1:])[1]
+
+            prof_rows = {}
+            for what, fn in (
+                    ("encode", lambda: rt.compress(x, q)),
+                    ("decode", lambda: dec_rt.decompress(
+                        runs[0][0][14:], hp, wp, q))):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA],
+                             record_shapes=True) as prof:
+                    t = time.time()
+                    fn()
+                    torch.cuda.synchronize()
+                    wall = (time.time() - t) * 1e3
+                averages = prof.key_averages(group_by_input_shape=True)
+                dev = _device_rows(averages)
+                device_ms = sum(r[0] for r in dev)
+                prof_rows[what] = {
+                    "wall_ms": wall, "device_ms": device_ms or None,
+                    "busy_share": device_ms / wall if device_ms else None,
+                    "top5": [{"ms": ms, "count": n, "name": k[:80]}
+                             for ms, n, k in dev[:5]],
+                    "conv_top3": _conv_shapes(averages)[:3]}
+            tap.enc, tap.dec = [], []
+            steps["profile_s"], t_step = time.time() - t_step, time.time()
+            flops = {"encode": _conv_flops(module, lambda: rt.compress(x, q)),
+                     "decode": _conv_flops(module, lambda: dec_rt.decompress(
+                         runs[0][0][14:], hp, wp, q))}
+            tap.enc, tap.dec = [], []
+            steps["flops_s"] = time.time() - t_step
+            row = {"model": f"evc_{variant}", "shape": [hp, wp],
+                   "bytes": len(runs[0][0]),
+                   "bpp": len(runs[0][0]) * 8 / (HEIGHT * WIDTH),
+                   "encode_ms_median3": enc_ms, "decode_ms_median3": dec_ms,
+                   "encode_ms_runs": [r[1] for r in runs],
+                   "decode_ms_runs": [r[2] for r in runs],
+                   "symbols_equal": True,
+                   "max_recon_gap": max(r[3] for r in runs),
+                   "peak_mem_gib": peak / 2 ** 30, "launches": counts,
+                   "profile": prof_rows, "phase_steps": steps}
+            for what in ("encode", "decode"):
+                ms = row[f"{what}_ms_median3"]
+                row[f"{what}_conv_gflop"] = flops[what] / 1e9
+                row[f"{what}_conv_bound_ms"] = flops[what] / F32_FLOPS * 1e3
+                row[f"{what}_conv_share_of_f32_peak"] = (
+                    flops[what] / F32_FLOPS * 1e3 / ms)
+                dev_ms = prof_rows[what]["device_ms"]
+                row[f"{what}_conv_share_of_f32_peak_device"] = (
+                    flops[what] / F32_FLOPS * 1e3 / dev_ms if dev_ms else None)
+            print(f"evc {json.dumps(row)}", flush=True)
+            rows[variant] = row
+            del module, rt, dec_rt, tap
+    results["evc"] = rows
+
+
+def evc_scalable_phase(results: dict):
+    """evc_scalable (4 S-grid encoders, L decoder) on a 768x512 image: the
+    RD cost of each encoder, the chosen one, and an exact round trip."""
+    import tempfile
+
+    import torch
+
+    from dcvc_tpu_torch.models.evc_scalable import LMBDAS, build_evc_scalable
+    from dcvc_tpu_torch.models.runtime import ScalableEvcRuntime
+    from dcvc_tpu_torch.utils import stream
+
+    module = build_evc_scalable(seed=22)
+    rt, dec_rt = ScalableEvcRuntime(module), ScalableEvcRuntime(module)
+    rt.update()
+    dec_rt.update()
+    tap = _SymbolTap(rt, dec_rt)
+    x = _image(SCALABLE_H, SCALABLE_W, 6)
+    q, _ = stream.get_rounded_q(EVC_Q)
+    _reset_counts()
+    with torch.no_grad():
+        bank = module(x, torch.tensor(q, device=x.device))
+    cost = (LMBDAS[rt.rate_idx] * 255 * 255 * bank["mse"] + bank["bpp"]).tolist()
+    with tempfile.TemporaryDirectory() as tmp:
+        for _ in range(2):                                  # warm-up, then timed
+            data, enc_ms, dec_ms, gap, comp = _evc_roundtrip(
+                rt, dec_rt, tap, x, SCALABLE_H, SCALABLE_W,
+                os.path.join(tmp, "scalable.bin"))
+    enc_id = comp["enc_id"]
+    counts = _no_kernel_launched("evc_scalable")
+    if enc_id != min(range(len(cost)), key=cost.__getitem__):
+        raise AssertionError(f"evc_scalable: enc_id {enc_id}, costs {cost}")
+    row = {"model": "evc_scalable", "shape": [SCALABLE_H, SCALABLE_W],
+           "rate_idx": rt.rate_idx, "enc_id": enc_id, "cost_by_encoder": cost,
+           "bytes": len(data), "bpp": len(data) * 8 / (SCALABLE_H * SCALABLE_W),
+           "encode_ms": enc_ms, "decode_ms": dec_ms, "symbols_equal": True,
+           "max_recon_gap": gap, "launches": counts}
+    print(f"evc_scalable {json.dumps(row)}", flush=True)
+    results["evc_scalable"] = row
+
+
+def image_cli_phase(results: dict):
+    """The image CLI in process on two seeded 768x512 PNGs: evc_LL at 2
+    rates writing streams (each .bin decoded again by a fresh runtime must
+    give the CLI's recon exactly), then intra_dc at 1 rate."""
+    import tempfile
+
+    import torch
+
+    from dcvc_tpu_torch.models import runtime as rtm
+    from dcvc_tpu_torch.models.registry import build
+    from dcvc_tpu_torch.tools import test_image
+    from dcvc_tpu_torch.utils import png, stream
+
+    names = ["im_a.png", "im_b.png"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "imgs")
+        os.makedirs(folder)
+        for i, name in enumerate(names):
+            img = _image(SCALABLE_H, SCALABLE_W, 30 + i)[0].permute(1, 2, 0)
+            png.write_png(os.path.join(folder, name), (img * 255).round()
+                          .to(torch.uint8).cpu().numpy())
+
+        def run(tag, *extra):
+            recons = []
+            decompress = rtm.EvcCodecRuntime.decompress
+
+            def recording(self, *a, **k):
+                out = decompress(self, *a, **k)
+                recons.append(out["x_hat"].clone())
+                return out
+
+            rtm.EvcCodecRuntime.decompress = recording
+            _reset_counts()
+            t = time.time()
+            try:
+                res = test_image.main([
+                    "--img_folder", folder, "--stream_path",
+                    os.path.join(tmp, tag), "--output_path",
+                    os.path.join(tmp, tag + ".json"), "--verbose", "0", *extra])
+            finally:
+                rtm.EvcCodecRuntime.decompress = decompress
+            wall = time.time() - t
+            counts = _no_kernel_launched(f"image_cli {tag}")
+            rates = {f"rate_{r}" for r in range(len(res["average"]))}
+            if set(res) != {"per_image", "average"} or \
+                    set(res["per_image"]) != set(names) or any(
+                        set(v) != rates for v in res["per_image"].values()):
+                raise AssertionError(f"image_cli {tag}: results nesting")
+            for v in res["per_image"].values():
+                for fr in v.values():
+                    if not (all(math.isfinite(x) for x in fr.values())
+                            and fr["bpp"] > 0):
+                        raise AssertionError(f"image_cli {tag}: {fr}")
+            runs[tag] = {"wall_s": wall, "launches": counts,
+                         "per_image": res["per_image"]}
+            print(f"image_cli {tag}: {json.dumps(runs[tag])}", flush=True)
+            return recons
+
+        recons = run("evc_LL", "--model", "evc_LL", "--rate_num", "2",
+                     "--write_stream", "1", "--calc_ssim", "1")
+        _, fresh = build("evc_LL")
+        fresh.update()
+        again = []
+        for name in names:
+            for r in range(2):
+                h, w, qi, s = stream.decode_i_ushort_q(
+                    os.path.join(tmp, "evc_LL", f"{name}_{r}.bin"))
+                again.append(fresh.decompress(s, h, w, qi / 100)["x_hat"])
+        if len(recons) != len(again) or not all(
+                torch.equal(a, b) for a, b in zip(recons, again)):
+            raise AssertionError("image_cli evc_LL: re-decoded recon differs "
+                                 "from the CLI's")
+        sizes = [os.path.getsize(os.path.join(tmp, "evc_LL", f"{n}_{r}.bin"))
+                 for n in names for r in range(2)]
+        if min(sizes) <= 14:                       # a header and no stream
+            raise AssertionError(f"image_cli evc_LL: .bin sizes {sizes}")
+        run("intra_dc", "--model", "intra_dc", "--rate_num", "1",
+            "--write_stream", "1")
+        print(f"image_cli checks: {len(again)} evc_LL .bin files re-decoded "
+              f"by a fresh runtime equal the CLI's recon ({sizes} bytes)",
+              flush=True)
+    results["image_cli"] = runs
+
+
 def main() -> int:
     import torch
 
@@ -688,18 +1019,28 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     results: dict = {}
-    kernel_phase(results)
-    band_copy_phase(results)
-    tile_warp_phase(results)
-    reference_phase()
-    main_path_phase(results)
-    cli_phase(results)
-    diag_phase(results)
+    phases = [kernel_phase, band_copy_phase, tile_warp_phase,
+              reference_phase, main_path_phase, cli_phase,
+              diag_phase, evc_phase, evc_scalable_phase, image_cli_phase]
+    for i, phase in enumerate(phases):
+        t = time.time()
+        phase(results)
+        print(f"phase {i + 3} ({phase.__name__}): {time.time() - t:.1f} s",
+              flush=True)
 
     k1 = results["block_warp"]
     od = k1["od_1080p_f32"]
     k2 = results["band_copy"]["tool_720x1408x16x4"]
     cli_k1 = sum(r["launches"]["block_warp"] for r in results["cli"].values())
+
+    def no_kernel_paths(kernel):
+        """Launches on the EVC / image-CLI paths (checked to be 0)."""
+        return {
+            "evc_runtimes": sum(r["launches"][kernel]
+                                for r in results["evc"].values()),
+            "evc_scalable": results["evc_scalable"]["launches"][kernel],
+            "image_cli": sum(r["launches"][kernel]
+                             for r in results["image_cli"].values())}
     print(json.dumps({"kernels": [{
         "name": "block_warp", "route": "cuda",
         "source": "dcvc_tpu_torch/csrc/block_warp.cu",
@@ -708,7 +1049,7 @@ def main() -> int:
         "launches": cli_k1,
         "launches_by_path": {
             "runtimes": results["launches"]["runtimes"]["block_warp"],
-            "cli": cli_k1, "diag_dma": 0},
+            "cli": cli_k1, "diag_dma": 0, **no_kernel_paths("block_warp")},
         "max_abs_err": max(r["max_abs_err"] for n, r in k1.items()
                            if n.endswith("f32")),
         "max_abs_err_bf16": max(r["max_abs_err"] for n, r in k1.items()
@@ -730,7 +1071,8 @@ def main() -> int:
         "tpu_kernel": "tools/diag_dma.py:make_bench.kernel",
         "launches": results["diag_dma"]["launches"],
         "launches_by_path": {"runtimes": 0, "cli": 0,
-                             "diag_dma": results["diag_dma"]["launches"]},
+                             "diag_dma": results["diag_dma"]["launches"],
+                             **no_kernel_paths("band_copy")},
         "max_abs_err": max(r["max_abs_err"]
                            for r in results["band_copy"].values()),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],

@@ -1,0 +1,199 @@
+"""EVC intra codec family: the L/M/S encoder x decoder grid + hyperprior
+(NCHW).
+
+Counterpart of ``dcvc_tpu/models/evc.py`` (parity targets:
+EVC/src/models/image_model.py:16-258, layers.py:227-253 for the enc/dec
+stacks, hyperprior.py:81-107 for the hyper and dual-prior nets,
+common_model.py for the dual-prior steps and the quant step). Child names
+are the reference EVC checkpoint's (``port_dc._evc_encoder`` /
+``_evc_tail``): ``enc.0``..``enc.6``, ``dec.0``..``dec.7``, ``hyper_enc``,
+``hyper_dec``, ``y_prior_fusion``, ``y_spatial_prior``,
+``bit_estimator_z``, ``q_basic`` (1, N, 1, 1) and ``q_scale`` (4, 1, 1, 1),
+so a published EVC ``.pth`` loads with ``load_state_dict(strict=True)``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from ..device import resolve_device
+from ..entropy import bits
+from ..entropy.bit_estimator import BitEstimator
+from ..layers.blocks import (
+    DepthConvBlock,
+    ResidualBlockUpsample,
+    ResidualBlockWithStride,
+    conv,
+    subpel_conv,
+)
+from ..layers.evc_blocks import DepthConvBlockUpsample, EvcDepthConvBlock
+from ..ops.math import lower_bound
+from . import priors
+
+EVC_CHANNEL_GRID = {
+    "L": (192, 192, 192, 192),
+    "M": (128, 128, 192, 192),
+    "S": (64, 64, 128, 192),
+}
+
+
+class EvcEncoder(nn.Sequential):
+    def __init__(self, channels: Sequence[int]):
+        c2, c4, c8, c16 = channels
+        super().__init__(
+            ResidualBlockWithStride(3, c2, 2), EvcDepthConvBlock(c2, c2),
+            ResidualBlockWithStride(c2, c4, 2), EvcDepthConvBlock(c4, c4),
+            ResidualBlockWithStride(c4, c8, 2), EvcDepthConvBlock(c8, c8),
+            conv(c8, c16, 3, 2))
+
+
+class EvcDecoder(nn.Sequential):
+    def __init__(self, channels: Sequence[int], out_ch: int = 3):
+        c2, c4, c8, c16 = channels
+        super().__init__(
+            EvcDepthConvBlock(c16, c16), ResidualBlockUpsample(c16, c8, 2),
+            EvcDepthConvBlock(c8, c8), ResidualBlockUpsample(c8, c4, 2),
+            EvcDepthConvBlock(c4, c4), ResidualBlockUpsample(c4, c2, 2),
+            EvcDepthConvBlock(c2, c2), subpel_conv(c2, out_ch, 2))
+
+
+class EvcHyperEnc(nn.Sequential):
+    # hyper / prior stacks use the DC-style DepthConvBlock
+    # (EVC/src/models/hyperprior.py:7-74), not the enc/dec EVC variant
+    def __init__(self, N: int):
+        super().__init__(DepthConvBlock(N, N), conv(N, N, 3, 2),
+                         nn.LeakyReLU(0.01), conv(N, N, 3, 2))
+
+
+class EvcHyperDec(nn.Sequential):
+    def __init__(self, N: int):
+        super().__init__(DepthConvBlockUpsample(N, N),
+                         DepthConvBlockUpsample(N, N), DepthConvBlock(N, N))
+
+
+class EvcPriorFusion(nn.Sequential):
+    def __init__(self, N: int):
+        super().__init__(DepthConvBlock(N, N * 2), DepthConvBlock(N * 2, N * 3))
+
+
+class EvcSpatialPrior(nn.Sequential):
+    """Input: cat(y_hat half 0, y_hat half 1, means, scales, quant_step),
+    4N channels."""
+
+    def __init__(self, N: int):
+        super().__init__(DepthConvBlock(N * 4, N * 3),
+                         DepthConvBlock(N * 3, N * 2),
+                         DepthConvBlock(N * 2, N * 2))
+
+
+class _EvcCodec(nn.Module):
+    """What EVCIntra and ScalableEVC share: the hyperprior, the dual prior,
+    the decoder and the quant step."""
+
+    def __init__(self, dec_channels: Sequence[int], N: int, anchor_num: int):
+        super().__init__()
+        self.N = N
+        self.dec = EvcDecoder(dec_channels)
+        self.hyper_enc = EvcHyperEnc(N)
+        self.hyper_dec = EvcHyperDec(N)
+        self.y_prior_fusion = EvcPriorFusion(N)
+        self.y_spatial_prior = EvcSpatialPrior(N)
+        self.bit_estimator_z = BitEstimator(N)
+        self.q_basic = nn.Parameter(torch.ones(1, N, 1, 1))
+        self.q_scale = nn.Parameter(torch.ones(anchor_num, 1, 1, 1))
+
+    def get_curr_q(self, q_scale):
+        return lower_bound(self.q_basic, 0.5) * q_scale
+
+    def spatial_prior_chunks(self, params):
+        # scales_0, means_0, scales_1, means_1
+        return self.y_spatial_prior(params).chunk(4, dim=1)
+
+    def prior_params(self, z_hat):
+        """(q_step, scales, means) from the decoded hyper-latent."""
+        return priors.separate_prior(self.y_prior_fusion(self.hyper_dec(z_hat)))
+
+    def synthesize(self, y_hat, q_scale):
+        return self.dec(y_hat * self.get_curr_q(q_scale))
+
+    def dual_scales_step1(self, q_step, scales, means, half0, half1):
+        return priors.dual_decode_scales(means, scales, q_step, half0, half1,
+                                         self.spatial_prior_chunks, 1)
+
+    def _code(self, x, y, curr_q, quant):
+        """Hyperprior, dual prior, synthesis and bit costs of latent ``y``
+        (already divided by the quant step) for input ``x``."""
+        z = self.hyper_enc(y)
+        z_hat = quant(z)
+        q_step, scales, means = self.prior_params(z_hat)
+        _, y_q, y_hat, scales_hat = priors.forward_dual_prior(
+            y, means, scales, q_step, self.spatial_prior_chunks, quant=quant)
+        x_hat = self.dec(y_hat * curr_q)
+        bits_y = bits.y_gaussian_bits(y_q, torch.clamp(scales_hat, 0.11, 1e10))
+        bits_z = bits.z_bits(z_hat, self.bit_estimator_z)
+        pixel_num = x.shape[2] * x.shape[3]
+        bpp_y = bits_y.sum(dim=(1, 2, 3)) / pixel_num
+        bpp_z = bits_z.sum(dim=(1, 2, 3)) / pixel_num
+        return x_hat, bpp_y, bpp_z, pixel_num
+
+    def _compress_latent(self, y, curr_q):
+        z_hat = torch.round(self.hyper_enc(y))
+        q_step, scales, means = self.prior_params(z_hat)
+        y_q_w0, y_q_w1, s_w0, s_w1, y_hat = priors.forward_dual_prior(
+            y, means, scales, q_step, self.spatial_prior_chunks, write=True)
+        return {
+            "z_hat": z_hat,
+            "y_q_planes": (y_q_w0, y_q_w1),
+            "scales_planes": (s_w0, s_w1),
+            "x_hat": torch.clamp(self.dec(y_hat * curr_q), 0.0, 1.0),
+        }
+
+
+class EVCIntra(_EvcCodec):
+    """Intra codec with independently sized encoder / decoder (e.g. EVC_SS)."""
+
+    def __init__(self, enc_channels: Sequence[int] = EVC_CHANNEL_GRID["L"],
+                 dec_channels: Sequence[int] = EVC_CHANNEL_GRID["L"],
+                 N: int = 192, anchor_num: int = 4):
+        super().__init__(dec_channels, N, anchor_num)
+        self.enc = EvcEncoder(enc_channels)
+
+    def forward(self, x, q_scale, quant_mode: str = "round"):
+        """Estimated-bits forward: x_hat + bit costs. ``x`` [B,3,H,W]."""
+        quant = priors.resolve_quant(quant_mode)
+        curr_q = self.get_curr_q(q_scale)
+        y = self.enc(x) / curr_q
+        x_hat, bpp_y, bpp_z, pixel_num = self._code(x, y, curr_q, quant)
+        return {
+            "x_hat": x_hat,
+            "bit": (bpp_y + bpp_z).sum() * pixel_num,
+            "bpp": bpp_y + bpp_z,
+            "bpp_y": bpp_y,
+            "bpp_z": bpp_z,
+        }
+
+    def compress_device(self, x, q_scale):
+        """Device half of compress: everything up to the symbol planes."""
+        curr_q = self.get_curr_q(q_scale)
+        return self._compress_latent(self.enc(x) / curr_q, curr_q)
+
+
+def make_evc(variant: str = "LL", N: int = 192) -> EVCIntra:
+    """variant "XY": encoder size X, decoder size Y, X/Y in {L, M, S}."""
+    return EVCIntra(EVC_CHANNEL_GRID[variant[0]], EVC_CHANNEL_GRID[variant[1]],
+                    N)
+
+
+def build_evc(variant: str = "LL", N: int = 192, seed: int = 0,
+              device=None) -> EVCIntra:
+    """EVCIntra with seeded random weights (``q_basic`` / ``q_scale`` at
+    ones, as the JAX init), on ``device`` (the card unless
+    ``device="cpu"``), in eval mode."""
+    dev = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        module = make_evc(variant, N)
+    return module.to(dev).eval()

@@ -1,9 +1,12 @@
-"""Four-part quad-tree spatial prior (NCHW, channel splits on dim=1).
+"""Spatial priors: four-part quad-tree and dual-part checkerboard
+(NCHW, channel splits on dim=1, masks [1, 1, H, W]).
 
-Counterpart of ``dcvc_tpu/models/priors.py`` lines 33-195 (parity target:
+Counterpart of ``dcvc_tpu/models/priors.py`` (parity targets:
 forward/compress/decompress_four_part_prior, reference
-DCVC-DC/src/models/common_model.py:88-321). ``torch.round`` rounds half to
-even like ``jnp.round``. The decode path is a set of per-step functions so
+DCVC-DC/src/models/common_model.py:88-321; forward/compress/
+decompress_dual_prior, DCVC-HEM/src/models/common_model.py:83-188 and
+EVC/src/models/common_model.py:58-164). ``torch.round`` rounds half to
+even like ``jnp.round``. The decode paths are sets of per-step functions so
 the host rANS decoder sits between them.
 """
 
@@ -166,3 +169,81 @@ def four_part_decode_update(common_params, y_hat_so_far, y_q_r, means_parts,
 def four_part_finalize(common_params, y_hat_so_far):
     quant_step, _, _ = separate_prior(common_params)
     return y_hat_so_far * torch.clamp_min(quant_step, 0.5)
+
+
+# ---------------------------------------------------------------------------
+# Dual-part checkerboard prior (HEM / EVC generation)
+# ---------------------------------------------------------------------------
+
+
+def checkerboard_mask(H: int, W: int, parity: int, dtype=torch.float32,
+                      device=None) -> torch.Tensor:
+    """[1, 1, H, W] checkerboard; parity 0 = (h+w) even ([[1,0],[0,1]])."""
+    hw = (torch.arange(H, device=device)[:, None]
+          + torch.arange(W, device=device)[None, :]) % 2
+    return (hw == parity).to(dtype)[None, None]
+
+
+def _checkerboards(ref: torch.Tensor):
+    H, W = ref.shape[2], ref.shape[3]
+    return (checkerboard_mask(H, W, 0, ref.dtype, ref.device),
+            checkerboard_mask(H, W, 1, ref.dtype, ref.device))
+
+
+def forward_dual_prior(y, means, scales, quant_step, spatial_prior_fn, *,
+                       write=False, quant=quant_round):
+    """Two (channel-half x checkerboard-phase) coding steps.
+
+    ``spatial_prior_fn`` maps cat(y_hat_0_0, y_hat_1_1, means, scales,
+    quant_step) to 4 chunks (scales_0, means_0, scales_1, means_1). With
+    ``write=True`` returns the two symbol planes, their scale planes and
+    y_hat."""
+    mask_0, mask_1 = _checkerboards(y)
+
+    quant_step = torch.clamp_min(quant_step, 0.5)
+    y = y / quant_step
+    y_0, y_1 = y.chunk(2, dim=1)
+    scales_0, scales_1 = scales.chunk(2, dim=1)
+    means_0, means_1 = means.chunk(2, dim=1)
+
+    r00, q00, h00, s00 = process_with_mask(y_0, scales_0, means_0, mask_0, quant)
+    r11, q11, h11, s11 = process_with_mask(y_1, scales_1, means_1, mask_1, quant)
+
+    params = torch.cat([h00, h11, means, scales, quant_step.expand_as(means)],
+                       dim=1)
+    scales_0, means_0, scales_1, means_1 = spatial_prior_fn(params)
+
+    r01, q01, h01, s01 = process_with_mask(y_0, scales_0, means_0, mask_1, quant)
+    r10, q10, h10, s10 = process_with_mask(y_1, scales_1, means_1, mask_0, quant)
+
+    y_hat = torch.cat([h00 + h01, h11 + h10], dim=1) * quant_step
+    if write:
+        return (q00 + q11, q01 + q10, s00 + s11, s01 + s10, y_hat)
+    y_res = torch.cat([r00 + r01, r11 + r10], dim=1)
+    y_q = torch.cat([q00 + q01, q11 + q10], dim=1)
+    scales_hat = torch.cat([s00 + s01, s11 + s10], dim=1)
+    return y_res, y_q, y_hat, scales_hat
+
+
+def dual_decode_scales(means, scales, quant_step, y_hat_half0, y_hat_half1,
+                       spatial_prior_fn, step: int):
+    """Scales plane of decode step ``step`` (0 or 1) and its means pair."""
+    mask_0, mask_1 = _checkerboards(means)
+    if step == 0:
+        scales_0, scales_1 = scales.chunk(2, dim=1)
+        means_0, means_1 = means.chunk(2, dim=1)
+        scales_r = scales_0 * mask_0 + scales_1 * mask_1
+        return scales_r, (means_0, means_1)
+    params = torch.cat([y_hat_half0, y_hat_half1, means, scales,
+                        torch.clamp_min(quant_step, 0.5).expand_as(means)],
+                       dim=1)
+    scales_0, means_0, scales_1, means_1 = spatial_prior_fn(params)
+    scales_r = scales_0 * mask_1 + scales_1 * mask_0
+    return scales_r, (means_0, means_1)
+
+
+def dual_decode_update(y_q_r, means_pair, step: int):
+    """The two channel halves of y_hat that step ``step`` decodes."""
+    mask_0, mask_1 = _checkerboards(y_q_r)
+    m0, m1 = (mask_0, mask_1) if step == 0 else (mask_1, mask_0)
+    return (y_q_r + means_pair[0]) * m0, (y_q_r + means_pair[1]) * m1

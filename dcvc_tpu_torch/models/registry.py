@@ -1,17 +1,20 @@
-"""Model + runtime registry (``dcvc_tpu/models/registry.py``), DC models.
+"""Model + runtime registry (``dcvc_tpu/models/registry.py``): the DC pair
+and the EVC intra family.
 
-``build("intra_dc" | "dmc_dc", seed, device, state_dict=None, **kwargs)``
-returns ``(module, runtime)``: the module with seeded random weights, or
+``build(name, seed, device, state_dict=None, **kwargs)`` returns
+``(module, runtime)``: the module with seeded random weights, or
 ``state_dict`` loaded with ``strict=True``, and its coding runtime (not yet
-``update()``d). Every other name of the JAX registry waits for ROADMAP
-Queue 1 item 13.
+``update()``d). ``evc_XY`` is the EVC grid (encoder size X, decoder size Y,
+each L, M or S), ``evc_scalable`` the scalable encoder bank. Every other
+name of the JAX registry waits for ROADMAP Queue 1 item 13.
 """
 
 from __future__ import annotations
 
 from ..device import resolve_device
 
-DC_MODELS = ("intra_dc", "dmc_dc")
+EVC_MODELS = tuple(f"evc_{e}{d}" for e in "LMS" for d in "LMS")
+PORTED = ("intra_dc", "dmc_dc", *EVC_MODELS, "evc_scalable")
 MODEL_NAMES = [
     "evc_LL", "evc_LM", "evc_LS", "evc_ML", "evc_MM", "evc_MS", "evc_SL",
     "evc_SS", "evc_scalable",
@@ -25,20 +28,29 @@ MODEL_NAMES = [
 def build(name: str, seed: int = 0, device=None, state_dict=None, **kwargs):
     """Returns ``(module, runtime)`` on ``device`` (the card unless
     ``device="cpu"``)."""
+    from .evc import build_evc
+    from .evc_scalable import build_evc_scalable
     from .intra_dc import build_intra_dc
-    from .runtime import DmcRuntime, IntraDcRuntime
+    from .runtime import (DmcRuntime, EvcCodecRuntime, IntraDcRuntime,
+                          ScalableEvcRuntime)
     from .video_dc import build_dmc
 
-    if name not in MODEL_NAMES:
+    if name not in MODEL_NAMES and name not in EVC_MODELS:
         raise KeyError(f"unknown model {name}")
-    if name not in DC_MODELS:
+    if name not in PORTED:
         raise NotImplementedError(
             f"{name} is not ported yet (ROADMAP Queue 1 item 13, the other "
             f"generations)")
     dev = resolve_device(device)
-    build_fn, runtime_cls = ((build_intra_dc, IntraDcRuntime)
-                             if name == "intra_dc" else (build_dmc, DmcRuntime))
-    module = build_fn(seed=seed, device=dev, **kwargs)
+    if name in EVC_MODELS:
+        module = build_evc(name.split("_")[1], seed=seed, device=dev, **kwargs)
+        runtime_cls = EvcCodecRuntime
+    else:
+        build_fn, runtime_cls = {
+            "evc_scalable": (build_evc_scalable, ScalableEvcRuntime),
+            "intra_dc": (build_intra_dc, IntraDcRuntime),
+            "dmc_dc": (build_dmc, DmcRuntime)}[name]
+        module = build_fn(seed=seed, device=dev, **kwargs)
     if state_dict is not None:
         module.load_state_dict(state_dict, strict=True)
     return module, runtime_cls(module, device=dev)

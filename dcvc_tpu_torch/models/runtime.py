@@ -1,14 +1,16 @@
 """Codec runtimes: device compute + host rANS entropy coding.
 
 Counterpart of ``dcvc_tpu/models/runtime.py`` (``_RuntimeBase``,
-``DmcRuntime``, ``IntraDcRuntime``; its ``_build_indexes_i16`` is
+``EvcCodecRuntime``, ``ScalableEvcRuntime``, ``DmcRuntime``,
+``IntraDcRuntime``; its ``_build_indexes_i16`` is
 ``GaussianConditionalCoder.build_indexes`` here); the layer the
 reference spreads across CompressionModel.update / compress / decompress
 (DCVC-DC/src/models/common_model.py:63-68, image_model.py:198-252,
-video_model.py:425-557). Only int16 symbol and scale-index planes cross to
-the host, in the JAX package's NHWC order, so streams are interchangeable
-with ``dcvc_tpu``'s. The decode is the plain serial chain per four-part
-step: scales on the device, rANS on the host, update on the device.
+video_model.py:425-557; EVC/src/models/image_model.py:131-181). Only int16
+symbol and scale-index planes cross to the host, in the JAX package's NHWC
+order, so streams are interchangeable with ``dcvc_tpu``'s. The decode is
+the plain serial chain per prior step (four-part or dual): scales on the
+device, rANS on the host, update on the device.
 
 Frames and DPB tensors are NCHW. Runtimes run on ``cuda`` unless built with
 ``device="cpu"``; without a card they raise.
@@ -116,6 +118,113 @@ class _RuntimeBase:
             so_far = priors.four_part_decode_update(
                 params, so_far, y_q_r, means_parts, step)
         return so_far
+
+
+class EvcCodecRuntime(_RuntimeBase):
+    """Runtime for the EVC intra family (dual-part checkerboard prior).
+
+    Parity: EVC/src/models/image_model.py:131-181 compress / decompress.
+    Stream order: z, then the two dual-prior symbol planes. As in the JAX
+    package, the encoder always codes with decoder-aligned indexes: z and
+    the plane-0 symbols re-enter as fresh NCHW tensors, exactly as the
+    decoder receives them from host rANS, and the indexes come from the
+    decoder's own functions (``_decode_dual``).
+    """
+
+    y_distribution = "gaussian"
+
+    def _z_estimators(self):
+        return ["bit_estimator_z"]
+
+    @torch.no_grad()
+    def forward(self, x, q_scale):
+        """Estimated-bits forward: ``{"x_hat", "bit", "bpp", ...}``."""
+        return self.module(self._tensor(x), self._tensor(q_scale))
+
+    @torch.no_grad()
+    def compress(self, x, q_scale):
+        out = self.module.compress_device(self._tensor(x),
+                                          self._tensor(q_scale))
+        return {"bit_stream": self._encode_aligned(out),
+                "x_hat": out["x_hat"]}
+
+    def _decode_dual(self, z_hat, sym_source):
+        """The decoder's chain from z to the two halves of y_hat (before the
+        quant step) and q_step; ``sym_source(scales_r)`` gives each dual
+        step's symbol plane."""
+        m = self.module
+        q_step, scales, means = m.prior_params(z_hat)
+        scales_r, means_pair = priors.dual_decode_scales(
+            means, scales, q_step, None, None, None, 0)
+        h0, h1 = priors.dual_decode_update(sym_source(scales_r), means_pair, 0)
+        scales_r, means_pair = m.dual_scales_step1(q_step, scales, means,
+                                                   h0, h1)
+        d0, d1 = priors.dual_decode_update(sym_source(scales_r), means_pair, 1)
+        return h0 + d0, h1 + d1, q_step
+
+    def _encode_aligned(self, out) -> bytes:
+        """Write z and the symbol planes of ``compress_device``'s ``out``
+        with the indexes the decoder derives from them."""
+        z_np = _to_host_nhwc(out["z_hat"])
+        planes = [_to_host_nhwc(torch.round(torch.clamp(q, -30000, 30000)))
+                  for q in out["y_q_planes"]]
+        indexes = []
+
+        def sym_source(scales_r):
+            indexes.append(_to_host_nhwc(self.gaussian.build_indexes(scales_r)))
+            return self._from_host_nhwc(planes[len(indexes) - 1])
+
+        self._decode_dual(self._from_host_nhwc(z_np), sym_source)
+        self.entropy_coder.reset()
+        self._encode_z("bit_estimator_z", out["z_hat"])
+        for sym, idx in zip(planes, indexes):
+            self.gaussian.encode_with_indexes(self.entropy_coder, sym, idx)
+        self.entropy_coder.flush()
+        return self.entropy_coder.get_encoded_stream()
+
+    @torch.no_grad()
+    def decompress(self, bit_stream, height, width, q_scale):
+        self.entropy_coder.set_stream(bit_stream)
+        zh, zw = get_downsampled_shape(height, width, 64)
+        z_hat = self._decode_z("bit_estimator_z", (1, self.module.N, zh, zw))
+        half0, half1, q_step = self._decode_dual(z_hat, self._host_decode)
+        y_hat = torch.cat([half0, half1], dim=1) * torch.clamp_min(q_step, 0.5)
+        x_hat = self.module.synthesize(y_hat, self._tensor(q_scale))
+        return {"x_hat": torch.clamp(x_hat, 0.0, 1.0)}
+
+
+class ScalableEvcRuntime(EvcCodecRuntime):
+    """Scale_EVC: RD-cost encoder selection at encode time
+    (EVC/src/models/scalable_encoder_model.py:143-160). The encoder id is
+    picked from the forward of the whole bank, then the stream is coded
+    with that encoder; the decoder does not depend on it."""
+
+    def __init__(self, module, ec_thread=False, stream_part=1, device=None,
+                 rate_idx: int = 0):
+        super().__init__(module, ec_thread, stream_part, device)
+        self.rate_idx = rate_idx
+
+    def _choose(self, x, q_scale):
+        from .evc_scalable import choose_encoder_id
+
+        out = self.module(x, q_scale, None)
+        return out, choose_encoder_id(out["mse"], out["bpp"], self.rate_idx)
+
+    @torch.no_grad()
+    def forward(self, x, q_scale):
+        """Forward of the whole bank + RD argmin (the reference's
+        no-stream path)."""
+        out, cid = self._choose(self._tensor(x), self._tensor(q_scale))
+        return {"x_hat": out["x_hat"][cid:cid + 1], "bit": out["bit"][cid],
+                "bpp": out["bpp"][cid:cid + 1], "enc_id": cid}
+
+    @torch.no_grad()
+    def compress(self, x, q_scale):
+        x, q_scale = self._tensor(x), self._tensor(q_scale)
+        _, cid = self._choose(x, q_scale)
+        out = self.module.compress_device(x, q_scale, cid)
+        return {"bit_stream": self._encode_aligned(out),
+                "x_hat": out["x_hat"], "enc_id": cid}
 
 
 class DmcRuntime(_RuntimeBase):

@@ -1,12 +1,16 @@
-"""Checkpoint loading for the DC models: the ``load_params`` role of
-``dcvc_tpu/utils/checkpoint.py``.
+"""Checkpoint loading for the DC and EVC models: the ``load_params`` role
+of ``dcvc_tpu/utils/checkpoint.py``.
 
 Two formats give a port ``state_dict``:
   * a published torch checkpoint (``.pth``, ``.pth.tar``, ``.pt``,
     ``.ckpt``): the port keeps the reference's key names, so it loads as it
     is (``weights_only=True``; a ``state_dict`` / ``net`` wrapper and a
     ``module.`` prefix are unwrapped, as the reference's get_state_dict
-    does, DCVC-DC/src/utils/stream_helper.py:40-47);
+    does, DCVC-DC/src/utils/stream_helper.py:40-47); a plain EVC
+    checkpoint loaded into ``evc_scalable`` has its one encoder ``enc.*``
+    copied onto every ``encs.{i}.*``, as ``port_dc.convert_evc_scalable``
+    and the reference's shape-tolerant load do
+    (EVC/src/models/scalable_encoder_model.py:45-69);
   * the JAX package's native ``.npz`` (its ``save_params``: path-joined
     flax arrays), unflattened here and turned into a ``state_dict`` by
     ``utils/convert.py``.
@@ -17,10 +21,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .convert import dmc_from_jax, intra_dc_from_jax
+from ..models.registry import EVC_MODELS
+from .convert import (dmc_from_jax, evc_from_jax, evc_scalable_from_jax,
+                      intra_dc_from_jax)
 
-_FROM_JAX = {"intra_dc": intra_dc_from_jax, "dmc_dc": dmc_from_jax}
+_FROM_JAX = {"intra_dc": intra_dc_from_jax, "dmc_dc": dmc_from_jax,
+             "evc_scalable": evc_scalable_from_jax,
+             **{name: evc_from_jax for name in EVC_MODELS}}
 TORCH_SUFFIXES = (".pth", ".pth.tar", ".pt", ".ckpt")
+SCALABLE_ENC_NUM = 4
 
 
 def _unflatten(flat: dict) -> dict:
@@ -45,7 +54,14 @@ def load_state_dict(path: str, model: str) -> dict:
         for wrapper in ("state_dict", "net"):
             if wrapper in ckpt:
                 ckpt = ckpt[wrapper]
-        return {k.removeprefix("module."): v for k, v in ckpt.items()}
+        sd = {k.removeprefix("module."): v for k, v in ckpt.items()}
+        if model == "evc_scalable" and not any(k.startswith("encs.0.")
+                                               for k in sd):
+            enc = {k[len("enc."):]: sd.pop(k) for k in list(sd)
+                   if k.startswith("enc.")}
+            for i in range(SCALABLE_ENC_NUM):
+                sd.update({f"encs.{i}.{k}": v.clone() for k, v in enc.items()})
+        return sd
     with np.load(path) as data:
         tree = _unflatten({k: data[k] for k in data.files})
     return _FROM_JAX[model](tree)

@@ -1,7 +1,7 @@
 """Weights across: the JAX package's param trees -> port ``state_dict``s.
 
-The exact inverse of ``dcvc_tpu/utils/port_dc.py``'s ``convert_intra_dc``
-and ``convert_dmc``: flax HWIO kernels become torch OIHW, transposed-conv
+The exact inverse of ``dcvc_tpu/utils/port_dc.py``'s ``convert_intra_dc``,
+``convert_dmc``, ``convert_evc`` and ``convert_evc_scalable``: flax HWIO kernels become torch OIHW, transposed-conv
 kernels are flipped back, and OffsetDiversity's block-diagonal dense fusion
 becomes the reference's ``groups=16`` 1x1 conv. The input is a nested dict
 of arrays (``{"params": ...}`` or its inside); nothing of JAX is imported.
@@ -94,11 +94,15 @@ class FlaxToTorch:
     def subpel(self, t, *f):
         self.conv(_key(t, "0"), *f, "conv")
 
-    def dcb(self, t, *f, two: bool):
+    def dcb(self, t, *f, two: bool, seq: bool = False):
+        """DepthConvBlock (two=False) / DepthConvBlock2 (two=True);
+        ``seq=True``: the EVC enc/dec variant, whose depth_conv and conv2
+        are Sequentials (keys ``.0``)."""
         d = _key(t, "block.0")
+        sfx = ".0" if seq else ""
         self.conv(f"{d}.conv1.0", *f, "depth_conv", "conv1")
-        self.conv(f"{d}.depth_conv", *f, "depth_conv", "depth_conv")
-        self.conv(f"{d}.conv2", *f, "depth_conv", "conv2")
+        self.conv(f"{d}.depth_conv{sfx}", *f, "depth_conv", "depth_conv")
+        self.conv(f"{d}.conv2{sfx}", *f, "depth_conv", "conv2")
         if self.has(*f, "depth_conv", "adaptor", "kernel"):
             self.conv(f"{d}.adaptor", *f, "depth_conv", "adaptor")
         ffn = _key(t, "block.1")
@@ -108,6 +112,11 @@ class FlaxToTorch:
         else:
             self.conv(f"{ffn}.conv.0", *f, "ffn", "conv1")
             self.conv(f"{ffn}.conv.2", *f, "ffn", "conv2")
+
+    def dcb_upsample(self, t, *f):
+        """DepthConvBlockUpsample (EVC/src/models/hyperprior.py:66-74)."""
+        self.dcb(t, *f, "block", two=False)
+        self.conv(_key(t, "block.2"), *f, "subpel", "conv")
 
     def unet(self, t, *f, two: bool):
         for name in ("conv1", "conv2", "conv3"):
@@ -310,3 +319,58 @@ def _hyper_dec(m: FlaxToTorch, t: str):
     m.conv(f"{t}.4", t, "c2")
     m.subpel(f"{t}.6", t, "up2")
     m.conv(f"{t}.8", t, "c3")
+
+
+def _evc_encoder(m: FlaxToTorch, t: str, *f):
+    m.rbws(f"{t}.0", *f, "down1")
+    m.dcb(f"{t}.1", *f, "block1", two=False, seq=True)
+    m.rbws(f"{t}.2", *f, "down2")
+    m.dcb(f"{t}.3", *f, "block2", two=False, seq=True)
+    m.rbws(f"{t}.4", *f, "down3")
+    m.dcb(f"{t}.5", *f, "block3", two=False, seq=True)
+    m.conv(f"{t}.6", *f, "down4")
+
+
+def _evc_tail(m: FlaxToTorch):
+    """Everything of an EVC tree except the encoder(s)."""
+    for i in range(4):
+        m.dcb(f"dec.{2 * i}", "dec", f"block{i}", two=False, seq=True)
+    for i in range(3):
+        m.rbu(f"dec.{2 * i + 1}", "dec", f"up{i + 1}")
+    m.subpel("dec.7", "dec", "up4")
+
+    m.dcb("hyper_enc.0", "hyper_enc", "block", two=False)
+    m.conv("hyper_enc.1", "hyper_enc", "down1")
+    m.conv("hyper_enc.3", "hyper_enc", "down2")
+    m.dcb_upsample("hyper_dec.0", "hyper_dec", "up1")
+    m.dcb_upsample("hyper_dec.1", "hyper_dec", "up2")
+    m.dcb("hyper_dec.2", "hyper_dec", "block", two=False)
+
+    m.dcb("y_prior_fusion.0", "y_prior_fusion", "block1", two=False)
+    m.dcb("y_prior_fusion.1", "y_prior_fusion", "block2", two=False)
+    for i in range(3):
+        m.dcb(f"y_spatial_prior.{i}", "y_spatial_prior", f"block{i + 1}",
+              two=False)
+
+    m.bit_estimator("bit_estimator_z", "bit_estimator_z")
+    m.channel_param("q_basic", ("q_basic",))
+    m.param("q_scale", ("q_scale",))
+
+
+def evc_from_jax(params) -> dict:
+    """EVCIntra flax params (any grid) -> port (= reference EVC) state_dict."""
+    m = FlaxToTorch(params)
+    _evc_encoder(m, "enc", "enc")
+    _evc_tail(m)
+    return m.finish()
+
+
+def evc_scalable_from_jax(params) -> dict:
+    """ScalableEVC flax params -> port state_dict (``encs.{i}``)."""
+    m = FlaxToTorch(params)
+    i = 0
+    while m.has(f"encs_{i}", "down4", "kernel"):
+        _evc_encoder(m, f"encs.{i}", f"encs_{i}")
+        i += 1
+    _evc_tail(m)
+    return m.finish()

@@ -1,10 +1,12 @@
-"""Bitstream containers of the DCVC-DC write-stream path, in memory and
-as ``.bin`` files.
+"""Bitstream containers of the DC and EVC write-stream paths, in memory
+and as ``.bin`` files.
 
 The port's own copy of ``dcvc_tpu/utils/stream.py``'s DC containers
 (parity target: DCVC-DC/src/utils/stream_helper.py:94-139, I/P headers with
-a q_in_ckpt flag and a 6-bit q_index) and of ``get_rounded_q`` (DCVC-HEM
-stream_helper.py:41-45). Byte-identical to the JAX package's containers.
+a q_in_ckpt flag and a 6-bit q_index), its HEM/EVC I container (a rounded-q
+ushort in the header, ``encode_i_ushort_q``) and ``get_rounded_q``
+(DCVC-HEM stream_helper.py:41-45). Byte-identical to the JAX package's
+containers.
 """
 
 from __future__ import annotations
@@ -73,3 +75,26 @@ def encode_p(string, q_in_ckpt, q_index, frame_idx, output):
 
 def decode_p(inputpath):
     return unpack_p(Path(inputpath).read_bytes())
+
+
+# -- HEM/EVC style: rounded-q ushort in the header --------------------------
+
+def pack_i_ushort_q(height, width, q_index, bit_stream) -> bytes:
+    return (struct.pack(">2I", height, width) + struct.pack(">H", q_index)
+            + struct.pack(">I", len(bit_stream)) + bytes(bit_stream))
+
+
+def unpack_i_ushort_q(data: bytes):
+    height, width = struct.unpack(">2I", data[:8])
+    q_index = struct.unpack(">H", data[8:10])[0]
+    length = struct.unpack(">I", data[10:14])[0]
+    return height, width, q_index, data[14:14 + length]
+
+
+def encode_i_ushort_q(height, width, q_index, bit_stream, output):
+    Path(output).write_bytes(pack_i_ushort_q(height, width, q_index,
+                                             bit_stream))
+
+
+def decode_i_ushort_q(inputpath):
+    return unpack_i_ushort_q(Path(inputpath).read_bytes())

@@ -3,8 +3,10 @@
 The port's own copy of ``dcvc_tpu/utils/video_io.py`` (parity target:
 DCVC-DC/src/utils/video_reader.py:45-161 / video_writer.py:26-111: im1.png /
 im00001.png auto-detect, 8/16-bit raw RGB, skip_frame). Frames are HWC float
-arrays in [0, 1]. Pillow is imported by the PNG classes only, so the runner
-and the CLI import without it (YUV and raw RGB sources need no Pillow).
+arrays in [0, 1]. PNG sources are read with ``utils/png.py`` (no Pillow,
+which the machine with the card does not have); the PNG writer imports
+Pillow when it is built, so its files stay byte-identical to the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -14,13 +16,12 @@ from pathlib import Path
 
 import numpy as np
 
+from .png import read_png
+
 
 class PNGReader:
     def __init__(self, src_path: str, width: int | None = None,
                  height: int | None = None, start_num: int = 1):
-        from PIL import Image
-
-        self._image = Image
         self.src_path = src_path
         self.width, self.height = width, height
         self.current = start_num
@@ -38,8 +39,7 @@ class PNGReader:
         if not path.is_file():
             return None
         self.current += 1
-        img = self._image.open(path).convert("RGB")
-        return np.asarray(img, dtype=np.float32) / 255.0  # HWC in [0, 1]
+        return read_png(path).astype(np.float32) / 255.0  # HWC in [0, 1]
 
     def close(self):
         pass

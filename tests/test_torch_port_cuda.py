@@ -131,6 +131,57 @@ def test_runtime_roundtrip_on_card(cuda):
         assert torch.equal(v, d["dpb"][k]), k
 
 
+def _evc_input(cuda, seed=2):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.rand(1, 3, 256, 256, generator=g, device=cuda) * 4 - 1.5
+
+
+def test_evc_roundtrip_on_card(cuda):
+    """EVC at narrow widths: the card's decode gives the encoder's recon
+    (gap <= 1e-5) and no K1 / K2 launch."""
+    from dcvc_tpu_torch.models.evc import EVCIntra
+    from dcvc_tpu_torch.models.runtime import EvcCodecRuntime
+
+    torch.manual_seed(0)
+    rt = EvcCodecRuntime(EVCIntra((16, 16, 24, 32), (16, 16, 24, 32), 32))
+    rt.update()
+    x = _evc_input(cuda)
+    k1, k2 = bw.block_warp_nchw.launches, bc.band_copy.launches
+    comp = rt.compress(x, 0.85)
+    dec = rt.decompress(comp["bit_stream"], 256, 256, 0.85)
+    assert (comp["x_hat"] - dec["x_hat"]).abs().max().item() <= 1e-5
+    assert (bw.block_warp_nchw.launches, bc.band_copy.launches) == (k1, k2)
+
+
+def test_evc_forward_card_matches_cpu(cuda):
+    from dcvc_tpu_torch.models.evc import EVCIntra
+
+    torch.manual_seed(1)
+    m = EVCIntra((16, 16, 24, 32), (16, 16, 24, 32), 32).eval()
+    x = _evc_input(cuda, 3)
+    q = torch.tensor(0.85)
+    with torch.no_grad():
+        cpu = m(x.cpu(), q)
+        card = m.to(cuda)(x, q.to(cuda))
+    for k in ("x_hat", "bpp"):
+        gap = (card[k].cpu() - cpu[k]).abs().max().item()
+        assert gap <= 1e-4, (k, gap)
+
+
+def test_scalable_evc_roundtrip_on_card(cuda):
+    from dcvc_tpu_torch.models.evc_scalable import build_evc_scalable
+    from dcvc_tpu_torch.models.runtime import ScalableEvcRuntime
+
+    rt = ScalableEvcRuntime(build_evc_scalable(
+        enc_channels=(8, 8, 12, 16), dec_channels=(16, 16, 16, 16), N=16,
+        seed=4), rate_idx=3)
+    rt.update()
+    comp = rt.compress(_evc_input(cuda, 5), 0.7)
+    dec = rt.decompress(comp["bit_stream"], 256, 256, 0.7)
+    assert 0 <= comp["enc_id"] < 4
+    assert (comp["x_hat"] - dec["x_hat"]).abs().max().item() <= 1e-5
+
+
 @pytest.mark.parametrize("rows_per_step", [1, 8, 16])
 @pytest.mark.parametrize("H,Wp,C,A", [
     (720, 1408, 16, 4),    # the probe's shape: bulk copies, 7 chunks/band

@@ -5,8 +5,9 @@
   fresh interpreter.
 * Entry points run on the card unless asked for the CPU: without CUDA and
   without device="cpu" they raise.
-* The runner, the CLI and chip_smoke.py import without Pillow (the machine
-  with the card has none; only PNG sources need it).
+* The runner, the video and image CLIs and chip_smoke.py import without
+  Pillow (the machine with the card has none; PNGs are read by
+  utils/png.py).
 """
 
 import ast
@@ -48,7 +49,7 @@ def test_source_imports_no_jax(path):
 @pytest.fixture(scope="module")
 def fresh_imports():
     """One fresh interpreter for both import checks (it costs seconds to
-    start with torch): it first imports the runner, the CLI and
+    start with torch): it first imports the runner, the CLIs and
     chip_smoke.py and lists the PIL modules then loaded, then imports every
     module of the package and lists the JAX ones."""
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
@@ -60,7 +61,8 @@ def fresh_imports():
         "    return [m for m in sys.modules if any(\n"
         "        m == f or m.startswith(f + '.') for f in names)]\n"
         "for m in ['dcvc_tpu_torch.runner.video', "
-        "'dcvc_tpu_torch.tools.test_video', 'chip_smoke']:\n"
+        "'dcvc_tpu_torch.tools.test_video', "
+        "'dcvc_tpu_torch.tools.test_image', 'chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "pil = loaded(['PIL'])\n"
         f"for m in {sorted(mods) + ['chip_smoke']!r}:\n"
@@ -105,13 +107,20 @@ def test_runner_cli_and_chip_smoke_load_no_pil(fresh_imports):
 
 def test_registry_and_cli_raise_without_cuda(monkeypatch, tmp_path):
     from dcvc_tpu_torch.models import registry
-    from dcvc_tpu_torch.tools import test_video
+    from dcvc_tpu_torch.tools import test_image, test_video
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         registry.build("intra_dc", N=8, ch_a=8, ch_b=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         registry.build("dmc_dc")
+    for name in ("evc_LL", "evc_scalable"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            registry.build(name)
+    with pytest.raises(SystemExit, match="device='cpu'"):
+        test_image.main(["--img_folder", str(tmp_path)])
+    with pytest.raises(SystemExit, match="no .png images"):
+        test_image.main(["--img_folder", str(tmp_path), "--device", "cpu"])
     cfg = tmp_path / "cfg.json"
     cfg.write_text('{"test_classes": {}}')
     with pytest.raises(SystemExit, match="device='cpu'"):
