@@ -50,15 +50,37 @@ no result line):
      image: each encoder's RD cost, the chosen one, an exact round trip;
  12. the image CLI (dcvc_tpu_torch.tools.test_image, in process) on two
      seeded 768x512 PNGs written by utils/png.py: evc_LL at 2 rates with
-     streams and MS-SSIM (every .bin decoded again by a fresh runtime must
-     give the CLI's recon exactly), then intra_dc at 1 rate with streams;
- 13. one JSON line per kernel, then the result line.
+     streams and MS-SSIM and intra_hem at 1 rate with streams (every .bin
+     decoded again by a fresh runtime must give the CLI's recon exactly),
+     then intra_dc at 1 rate with streams;
+ 13. the HEM runtimes at full width: intra_hem (N=192) codes one I-frame
+     and dmc_hem (64 / 64 / 96) two chained P-frames of the seeded panning
+     content at 1920x1080 edge-padded to 1088, through the HEM containers
+     (ushort q for I, rounded mv / y q for P); aligned_enc off, then on.
+     Symbols equal, I recon gap 0.0, DPB gap <= 1e-4; encode / decode ms
+     (median of 3 after a warm-up), bytes, peak memory, the I-frame's 3x3
+     convolutions at the [1, 192, 136, 240] input (the shape cuDNN runs as
+     an FFT) with one timed alone, and one profiled P-frame (device ms,
+     busy share, top kernels). mc warps exact;
+ 14. one more dmc_hem P-frame with mc_warp_mode = the block warp: K1
+     launches 4 times per compress and 4 per decompress, symbols exact;
+     K1 against its plain version (atol 0) at the four mc shapes
+     ([1, 3, 1088, 1920] and [1, 64, 1088 / 544 / 272, 1920 / 960 / 480])
+     on the tensors compress warped, and K1's time at the 64-channel
+     full-resolution shape beside its bytes bound;
+ 15. intra_hem I + one canfvc_dmc P-frame at 1080p full width, exact as 13;
+ 16. the video CLI on a seeded 1080p PNG sequence of 3 frames: intra_hem +
+     dmc_hem writing streams and decoded PNGs (utils/png.write_png; read
+     back, they must equal a fresh runtime pair's re-decode of the .bin
+     files), then evc_SS with --force_intra;
+ 17. one JSON line per kernel, then the result line.
 
-Every path (7 to 12) runs with the kernels' launch counts set to 0 just
-before it and read just after. Paths 7, 8 and 9 fail if they launched none
-of their kernels; paths 10, 11 and 12 have no kernel (convolutions,
-elementwise ops and host rANS only) and fail if either count is not 0.
-Launches made to compare a kernel with its plain version are not counted.
+Every path (7 to 16) runs with the kernels' launch counts set to 0 just
+before it and read just after. Paths 7, 8, 9 and 14 fail if they launched
+none of their kernels (14: not exactly 4 + 4); paths 10-13, 15 and 16 have
+no kernel (convolutions, elementwise ops and host rANS only) and fail if
+either count is not 0. Launches made to compare a kernel with its plain
+version are not counted.
 
 Imports nothing of JAX. Needs one card; without one it exits non-zero.
 """
@@ -908,8 +930,9 @@ def evc_scalable_phase(results: dict):
 
 def image_cli_phase(results: dict):
     """The image CLI in process on two seeded 768x512 PNGs: evc_LL at 2
-    rates writing streams (each .bin decoded again by a fresh runtime must
-    give the CLI's recon exactly), then intra_dc at 1 rate."""
+    rates and intra_hem at 1 writing streams (each .bin decoded again by a
+    fresh runtime must give the CLI's recon exactly), then intra_dc at 1
+    rate."""
     import tempfile
 
     import torch
@@ -965,30 +988,503 @@ def image_cli_phase(results: dict):
             print(f"image_cli {tag}: {json.dumps(runs[tag])}", flush=True)
             return recons
 
-        recons = run("evc_LL", "--model", "evc_LL", "--rate_num", "2",
-                     "--write_stream", "1", "--calc_ssim", "1")
-        _, fresh = build("evc_LL")
-        fresh.update()
-        again = []
-        for name in names:
-            for r in range(2):
-                h, w, qi, s = stream.decode_i_ushort_q(
-                    os.path.join(tmp, "evc_LL", f"{name}_{r}.bin"))
-                again.append(fresh.decompress(s, h, w, qi / 100)["x_hat"])
-        if len(recons) != len(again) or not all(
-                torch.equal(a, b) for a, b in zip(recons, again)):
-            raise AssertionError("image_cli evc_LL: re-decoded recon differs "
-                                 "from the CLI's")
-        sizes = [os.path.getsize(os.path.join(tmp, "evc_LL", f"{n}_{r}.bin"))
-                 for n in names for r in range(2)]
-        if min(sizes) <= 14:                       # a header and no stream
-            raise AssertionError(f"image_cli evc_LL: .bin sizes {sizes}")
+        def redecode(tag, recons, rates):
+            """Each .bin of ``tag`` decoded by a fresh runtime must give
+            the CLI's recon exactly; returns the .bin sizes."""
+            _, fresh = build(tag)
+            fresh.update()
+            again = []
+            for name in names:
+                for r in range(rates):
+                    h, w, qi, s = stream.decode_i_ushort_q(
+                        os.path.join(tmp, tag, f"{name}_{r}.bin"))
+                    again.append(fresh.decompress(s, h, w, qi / 100)["x_hat"])
+            if len(recons) != len(again) or not all(
+                    torch.equal(a, b) for a, b in zip(recons, again)):
+                raise AssertionError(f"image_cli {tag}: re-decoded recon "
+                                     f"differs from the CLI's")
+            sizes = [os.path.getsize(os.path.join(tmp, tag, f"{n}_{r}.bin"))
+                     for n in names for r in range(rates)]
+            if min(sizes) <= 14:                   # a header and no stream
+                raise AssertionError(f"image_cli {tag}: .bin sizes {sizes}")
+            return sizes
+
+        sizes = redecode("evc_LL", run(
+            "evc_LL", "--model", "evc_LL", "--rate_num", "2",
+            "--write_stream", "1", "--calc_ssim", "1"), 2)
+        hem_sizes = redecode("intra_hem", run(
+            "intra_hem", "--model", "intra_hem", "--rate_num", "1",
+            "--write_stream", "1"), 1)
         run("intra_dc", "--model", "intra_dc", "--rate_num", "1",
             "--write_stream", "1")
-        print(f"image_cli checks: {len(again)} evc_LL .bin files re-decoded "
-              f"by a fresh runtime equal the CLI's recon ({sizes} bytes)",
-              flush=True)
+        print(f"image_cli checks: {len(sizes)} evc_LL and {len(hem_sizes)} "
+              f"intra_hem .bin files re-decoded by a fresh runtime equal the "
+              f"CLI's recon ({sizes}, {hem_sizes} bytes)", flush=True)
     results["image_cli"] = runs
+
+
+HEM_I_Q, HEM_MV_Q, HEM_Y_Q = 0.73, 0.9, 0.8   # q_scales, rounded to 1/100
+HEM_SEEDS = {"intra_hem": 40, "dmc_hem": 41, "canfvc_dmc": 42}
+
+
+def _sync_ms(t0: float) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3
+
+
+def _median3(runs, key):
+    """The median of the 3 runs after the first (the warm-up)."""
+    return sorted(r[key] for r in runs[1:])[1]
+
+
+def _dpb_gap(enc: dict, dec: dict) -> float:
+    return max((enc[k] - dec[k]).abs().max().item()
+               for k in enc if enc[k] is not None)
+
+
+def _hem_frames():
+    """The panning content of _content, edge-padded to a multiple of 64
+    (the HEM / EVC pad contract): 1920x1080 -> 1920x1088."""
+    import torch.nn.functional as F
+
+    from dcvc_tpu_torch.ops.warp import get_padding_size
+
+    _, pr, _, pb = get_padding_size(HEIGHT, WIDTH, 64)
+    return [F.pad(x, (0, pr, 0, pb), mode="replicate")
+            for x in _content(1 + P_FRAMES)]
+
+
+def _hem_i_frame(irt, tap, x):
+    """intra_hem compress -> ushort-q container -> decompress: the
+    encoder's and the decoder's recon must be equal (gap 0.0)."""
+    from dcvc_tpu_torch.utils import stream
+
+    q, q_index = stream.get_rounded_q(HEM_I_Q)
+    hp, wp = x.shape[2], x.shape[3]
+    t = time.time()
+    comp = irt.compress(x, q)
+    data = stream.pack_i_ushort_q(hp, wp, q_index, comp["bit_stream"])
+    enc_ms = _sync_ms(t)
+    t = time.time()
+    h, w, qi, s = stream.unpack_i_ushort_q(data)
+    dec = irt.decompress(s, h, w, qi / 100)
+    dec_ms = _sync_ms(t)
+    gap = (comp["x_hat"] - dec["x_hat"]).abs().max().item()
+    if not (tap.equal() and gap == 0.0):
+        raise AssertionError(f"intra_hem I-frame: symbols equal "
+                             f"{tap.equal()}, recon gap {gap}")
+    return {"bytes": len(data), "encode_ms": enc_ms, "decode_ms": dec_ms,
+            "max_recon_gap": gap}, comp, dec
+
+
+def _hem_p_frame(prt, tap, x, dpb_enc, dpb_dec, what):
+    """A HEM / CANF P-frame: compress -> rounded-q P container (the
+    hem_p pin's header) -> decompress from the decoder's DPB; symbols
+    equal and DPB gap <= RECON_TOL."""
+    import struct
+
+    from dcvc_tpu_torch.utils import stream
+
+    mv_q, mv_i = stream.get_rounded_q(HEM_MV_Q)
+    y_q, y_i = stream.get_rounded_q(HEM_Y_Q)
+    t = time.time()
+    comp = prt.compress(x, dpb_enc, mv_q, y_q)
+    data = (struct.pack(">2H", y_i, mv_i)
+            + struct.pack(">I", len(comp["bit_stream"]))
+            + bytes(comp["bit_stream"]))
+    enc_ms = _sync_ms(t)
+    t = time.time()
+    y_i, mv_i = struct.unpack(">2H", data[:4])
+    dec = prt.decompress(dpb_dec, data[8:], x.shape[2], x.shape[3],
+                         mv_i / 100, y_i / 100)
+    dec_ms = _sync_ms(t)
+    sym_ok = tap.equal()
+    gap = _dpb_gap(comp["dpb"], dec["dpb"])
+    if not (sym_ok and gap <= RECON_TOL
+            and _finite(dec["dpb"]["ref_frame"])):
+        raise AssertionError(f"{what}: symbols equal {sym_ok}, DPB gap {gap}")
+    return {"bytes": len(data), "encode_ms": enc_ms, "decode_ms": dec_ms,
+            "max_dpb_gap": gap}, comp, dec
+
+
+def _finite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t).all())
+
+
+def _hem_profile(fn) -> dict:
+    """One call under torch.profiler: wall / device ms, busy share, the
+    top five kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        fn()
+        wall = _sync_ms(t)
+    rows = _device_rows(prof.key_averages())
+    device_ms = sum(r[0] for r in rows)
+    return {"wall_ms": wall, "device_ms": device_ms or None,
+            "busy_share": device_ms / wall if device_ms else None,
+            "top5": [{"ms": ms, "count": n, "name": k[:80]}
+                     for ms, n, k in rows[:5]]}
+
+
+# the convolution input cuDNN's deterministic heuristic runs as an FFT
+# with ~33k gemvx launches a call (evc_LL, PERF.md section 5)
+FFT_SHAPE = (1, 192, 136, 240)
+
+
+def _fft_shape_convs(module, fn) -> list:
+    """The stride-1 3x3 nn.Conv2d modules that ``fn()`` calls on an input
+    of FFT_SHAPE, once per call."""
+    import torch.nn as nn
+
+    calls = []
+
+    def hook(conv, inputs, out):
+        if (tuple(inputs[0].shape) == FFT_SHAPE and conv.kernel_size == (3, 3)
+                and conv.stride == (1, 1)):
+            calls.append(conv)
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, nn.Conv2d)]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return calls
+
+
+def hem_phase(results: dict):
+    """intra_hem (N=192) + dmc_hem (64 / 64 / 96) at 1080p padded to 1088:
+    one I-frame (a warm-up + 3) and two chained P-frames through the
+    runtimes, with aligned_enc off (the last P-frame a warm-up + 3) and
+    then on; the I-frame's convolutions at FFT_SHAPE, and one more P-frame
+    under torch.profiler. mc warps exact: no kernel launches."""
+    import torch
+
+    from dcvc_tpu_torch.models.intra_hem import build_intra_hem
+    from dcvc_tpu_torch.models.runtime import EvcCodecRuntime, HemVideoRuntime
+    from dcvc_tpu_torch.models.video_hem import build_dmc_hem
+    from dcvc_tpu_torch.utils import stream
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    irt = EvcCodecRuntime(build_intra_hem(seed=HEM_SEEDS["intra_hem"]))
+    prt = HemVideoRuntime(build_dmc_hem(seed=HEM_SEEDS["dmc_hem"]))
+    irt.update()
+    prt.update()
+    taps = {"i": _SymbolTap(irt), "p": _SymbolTap(prt)}
+    xs = _hem_frames()
+    build_s = time.time() - t0
+    _reset_counts()
+    i_runs = [_hem_i_frame(irt, taps["i"], xs[0]) for _ in range(4)]
+    _, comp_i, dec_i = i_runs[-1]
+    i_runs = [r[0] for r in i_runs]
+    # where the I-frame's time goes, without a profiler (the FFT's ~100k
+    # kernel events take ~30 s to trace): the stride-1 3x3 convolutions at
+    # FFT_SHAPE per encode / decode, and one of them timed alone
+    q_i, _ = stream.get_rounded_q(HEM_I_Q)
+    fft = {"encode": _fft_shape_convs(irt.module, lambda: irt.compress(
+               xs[0], q_i)),
+           "decode": _fft_shape_convs(irt.module, lambda: irt.decompress(
+               comp_i["bit_stream"], xs[0].shape[2], xs[0].shape[3], q_i))}
+    taps["i"].enc, taps["i"].dec = [], []
+    if not fft["decode"]:
+        raise AssertionError(f"intra_hem decode: no 3x3 conv on {FFT_SHAPE}")
+    conv = fft["decode"][0]
+    probe = torch.rand(FFT_SHAPE, device=conv.weight.device)
+    with torch.no_grad():
+        fft_ms = _time_ms(lambda: conv(probe), 3, 1)
+    i_fft = {"shape": list(FFT_SHAPE), "conv_ms": fft_ms,
+             **{f"calls_{k}": len(v) for k, v in fft.items()}}
+    del probe
+    dpb0_enc = {"ref_frame": comp_i["x_hat"], "ref_feature": None,
+                "ref_y": None, "ref_mv_y": None}
+    dpb0_dec = dict(dpb0_enc, ref_frame=dec_i["x_hat"])
+    chains, streams = {}, {}
+    for aligned in (False, True):
+        prt.aligned_enc = aligned
+        de, dd = dpb0_enc, dpb0_dec
+        rows = []
+        for i in range(1, 1 + P_FRAMES):
+            reps = 4 if (i == P_FRAMES and not aligned) else 1
+            runs = [_hem_p_frame(prt, taps["p"], xs[i], de, dd,
+                                 f"dmc_hem P{i}") for _ in range(reps)]
+            row, comp, dec = runs[-1]
+            if reps > 1:
+                row = dict(row, encode_ms_median3=_median3(
+                    [r[0] for r in runs], "encode_ms"),
+                    decode_ms_median3=_median3([r[0] for r in runs],
+                                               "decode_ms"))
+            rows.append(row)
+            streams.setdefault(aligned, []).append(comp["bit_stream"])
+            de, dd = comp["dpb"], dec["dpb"]
+        chains["aligned_enc" if aligned else "direct"] = rows
+    prt.aligned_enc = False
+    counts = _no_kernel_launched("hem runtimes")
+    peak = torch.cuda.max_memory_allocated()
+    x = xs[-1].roll(4, dims=3)
+    mv_q, _ = stream.get_rounded_q(HEM_MV_Q)
+    y_q, _ = stream.get_rounded_q(HEM_Y_Q)
+    profile = _hem_profile(lambda: prt.decompress(
+        dd, prt.compress(x, de, mv_q, y_q)["bit_stream"], x.shape[2],
+        x.shape[3], mv_q, y_q))
+    taps["p"].enc, taps["p"].dec = [], []
+    row = {"models": {"intra_hem": "N=192", "dmc_hem": "64/64/96"},
+           "shape": list(xs[0].shape[2:]), "build_s": build_s,
+           "i_frame": dict(i_runs[-1],
+                           encode_ms_median3=_median3(i_runs, "encode_ms"),
+                           decode_ms_median3=_median3(i_runs, "decode_ms"),
+                           bpp=i_runs[-1]["bytes"] * 8 / (HEIGHT * WIDTH)),
+           "p_frames": chains,
+           "aligned_streams_identical": streams[True] == streams[False],
+           "symbols_equal": True, "peak_mem_gib": peak / 2 ** 30,
+           "launches": counts,
+           "i_frame_fft_convs": i_fft,
+           "profile_p_frame": profile}
+    print(f"hem {json.dumps(row)}", flush=True)
+    results["hem"] = row
+    results["_hem_state"] = (prt, taps["p"], x, de, dd)
+
+
+K1_HEM_MODE = "block:4,4,64,128,median4"   # ops/warp.py RD_GATED_BLOCK_MODE
+
+
+def hem_block_phase(results: dict):
+    """One more dmc_hem P-frame with mc_warp_mode = the block warp: K1
+    launches 4 times per compress and 4 per decompress (the frame warp and
+    the three context warps), symbols exact. Then K1 against its plain
+    version (atol 0) at the four mc shapes on the inputs that compress
+    warped, and K1's time at the 64-channel full-resolution one."""
+    import torch
+
+    from dcvc_tpu_torch.ops import block_warp as bw
+    from dcvc_tpu_torch.ops.warp import bilinear_down2
+
+    from dcvc_tpu_torch.utils import stream
+
+    prt, tap, x, de, dd = results.pop("_hem_state")
+    m = prt.module
+    mv_q, _ = stream.get_rounded_q(HEM_MV_Q)
+    y_q, _ = stream.get_rounded_q(HEM_Y_Q)
+    seen = {}
+    hooks = [m.mv_decoder.register_forward_hook(
+                 lambda mod, i, out: seen.setdefault("mv", out)),
+             m.feature_extractor.register_forward_hook(
+                 lambda mod, i, out: seen.setdefault("features", out))]
+    m.mc_warp_mode = K1_HEM_MODE
+    try:
+        _reset_counts()
+        t = time.time()
+        comp = prt.compress(x, de, mv_q, y_q)
+        enc_ms = _sync_ms(t)
+        n_compress = bw.block_warp_nchw.launches
+        t = time.time()
+        dec = prt.decompress(dd, comp["bit_stream"], x.shape[2], x.shape[3],
+                             mv_q, y_q)
+        dec_ms = _sync_ms(t)
+        counts = _counts()
+    finally:
+        m.mc_warp_mode = None
+        for h in hooks:
+            h.remove()
+    per_side = {"compress": n_compress,
+                "decompress": counts["block_warp"] - n_compress}
+    sym_ok, gap = tap.equal(), _dpb_gap(comp["dpb"], dec["dpb"])
+    if not (sym_ok and gap <= RECON_TOL):
+        raise AssertionError(f"hem block mc: symbols equal {sym_ok}, DPB "
+                             f"gap {gap}")
+    if per_side != {"compress": 4, "decompress": 4} or counts["band_copy"]:
+        raise AssertionError(f"hem block mc: K1 launches {per_side}, K2 "
+                             f"{counts['band_copy']}; expected 4 + 4 and 0")
+    row = {"bytes": len(comp["bit_stream"]), "encode_ms": enc_ms,
+           "decode_ms": dec_ms, "max_dpb_gap": gap, "symbols_equal": True}
+    mv = seen["mv"]
+    mv2 = bilinear_down2(mv) / 2
+    mv3 = bilinear_down2(mv2) / 2
+    f1, f2, f3 = seen["features"]
+    spec = (4, 4, 64, 128, "median4")
+    checks = {}
+    for name, im, flow in (("frame_3ch", de["ref_frame"], mv),
+                           ("context1_64ch", f1, mv), ("context2_64ch", f2, mv2),
+                           ("context3_64ch", f3, mv3)):
+        ker = bw.block_warp_nchw(im, flow, *spec)
+        torch.cuda.synchronize()
+        plain = bw.block_warp_plain_nchw(im, flow, *spec)
+        err = (ker - plain).abs().max().item()
+        if not (err == 0.0 and _finite(ker)):
+            raise AssertionError(f"K1 hem {name} {tuple(im.shape)}: max abs "
+                                 f"err {err} > 0")
+        checks[name] = {"shape": list(im.shape), "max_abs_err": err}
+    nbytes = (f1.numel() * 4 + mv.numel() * 4 + f1.numel() * 4)
+    M, C, H, W = f1.shape
+    flops = M * H * W * (12 + 9 * C)
+    k1 = {"shape": list(f1.shape),
+          "ms": _time_ms(lambda: bw.block_warp_nchw(f1, mv, *spec), 20, 3),
+          "plain_ms": _time_ms(lambda: bw.block_warp_plain_nchw(
+              f1, mv, *spec), 3),
+          "bytes": nbytes, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+          "ops_ms": flops / F32_FLOPS * 1e3}
+    k1["bound_ms"] = max(k1["bytes_ms"], k1["ops_ms"])
+    k1["bound_by"] = ("bytes" if k1["bytes_ms"] >= k1["ops_ms"]
+                      else "operations")
+    k1["share_of_bound"] = k1["bound_ms"] / k1["ms"]
+    row.update(launches=counts, k1_launches=per_side, k1_vs_plain=checks,
+               k1_64ch_full_res=k1)
+    print(f"hem_block_mc {json.dumps(row)}", flush=True)
+    results["hem_block"] = row
+
+
+def canf_phase(results: dict):
+    """intra_hem I + one canfvc_dmc P-frame (a warm-up + 3) at 1080p padded
+    to 1088, full width; exact as the HEM phase, no kernel launches."""
+    import torch
+
+    from dcvc_tpu_torch.models.intra_hem import build_intra_hem
+    from dcvc_tpu_torch.models.runtime import EvcCodecRuntime, HemVideoRuntime
+    from dcvc_tpu_torch.models.video_canf import build_canf
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    irt = EvcCodecRuntime(build_intra_hem(seed=HEM_SEEDS["intra_hem"]))
+    crt = HemVideoRuntime(build_canf(seed=HEM_SEEDS["canfvc_dmc"]))
+    irt.update()
+    crt.update()
+    taps = {"i": _SymbolTap(irt), "p": _SymbolTap(crt)}
+    xs = _hem_frames()
+    _reset_counts()
+    i_row, comp_i, dec_i = _hem_i_frame(irt, taps["i"], xs[0])
+    dpb_enc = {"ref_frame": comp_i["x_hat"], "ref_feature": None,
+               "ref_y": None, "ref_mv_y": None}
+    dpb_dec = dict(dpb_enc, ref_frame=dec_i["x_hat"])
+    runs = [_hem_p_frame(crt, taps["p"], xs[1], dpb_enc, dpb_dec,
+                         "canfvc_dmc P1")[0] for _ in range(4)]
+    counts = _no_kernel_launched("canf runtimes")
+    row = {"models": {"intra_hem": "N=192", "canfvc_dmc": "64/64/96"},
+           "i_frame": i_row, "p_frame": runs[-1],
+           "p_encode_ms_median3": _median3(runs, "encode_ms"),
+           "p_decode_ms_median3": _median3(runs, "decode_ms"),
+           "p_bpp": runs[-1]["bytes"] * 8 / (HEIGHT * WIDTH),
+           "symbols_equal": True,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": counts}
+    print(f"canf {json.dumps(row)}", flush=True)
+    results["canf"] = row
+
+
+def _write_png_sequence(folder: str, n_frames: int):
+    """The panning content of _content as im1.png .. imN.png."""
+    import torch
+
+    from dcvc_tpu_torch.utils import png
+
+    os.makedirs(folder, exist_ok=True)
+    for i, x in enumerate(_content(n_frames)):
+        png.write_png(os.path.join(folder, f"im{i + 1}.png"),
+                      (x[0].permute(1, 2, 0) * 255).round().to(torch.uint8)
+                      .cpu().numpy())
+
+
+def _redecode_hem_pngs(stream_dir: str, seq: str) -> list:
+    """Decode the CLI's intra_hem + dmc_hem .bin files again in a fresh
+    runtime pair built as the CLI builds them; the recons as the CLI's PNG
+    writer rounds them."""
+    import numpy as np
+
+    from dcvc_tpu_torch.models.registry import build
+    from dcvc_tpu_torch.runner.adapters import adapt_i_runtime, adapt_p_runtime
+    from dcvc_tpu_torch.utils import stream
+
+    irt, prt = (adapt_i_runtime(build("intra_hem")[1]),
+                adapt_p_runtime(build("dmc_hem")[1]))
+    irt.update()
+    prt.update()
+    out, dpb = [], None
+    for i in range(CLI_FRAMES):
+        path = os.path.join(stream_dir, f"{seq}_{i}.bin")
+        if i == 0:
+            h, w, qc, qi, s = stream.decode_i(path)
+            x_hat = irt.decompress(s, h, w, qc, qi)["x_hat"].clamp(0.0, 1.0)
+            dpb = {"ref_frame": x_hat, "ref_feature": None, "ref_y": None,
+                   "ref_mv_y": None}
+        else:
+            qc, qi, fi, s = stream.decode_p(path)
+            dpb = dict(prt.decompress(dpb, s, HEIGHT, WIDTH, qc, qi, fi)["dpb"])
+            x_hat = dpb["ref_frame"] = dpb["ref_frame"].clamp(0.0, 1.0)
+        recon = x_hat[0, :, :HEIGHT, :WIDTH].permute(1, 2, 0).cpu().numpy()
+        out.append(np.clip(np.rint(recon * 255.0), 0, 255).astype(np.uint8))
+    return out
+
+
+def hem_cli_phase(results: dict):
+    """The video CLI on a 1080p PNG sequence: intra_hem + dmc_hem writing
+    streams and the decoded PNGs (re-decoded by a fresh runtime pair, the
+    PNGs read back must equal them), then evc_SS with --force_intra."""
+    import tempfile
+
+    import numpy as np
+
+    from dcvc_tpu_torch.tools import test_video
+    from dcvc_tpu_torch.utils import png
+
+    seq, runs = "synthetic_1080p_png", {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_png_sequence(os.path.join(tmp, seq), CLI_FRAMES)
+        cfg_path = os.path.join(tmp, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump({"root_path": tmp, "test_classes": {"smoke": {
+                "test": 1, "base_path": "", "src_type": "png",
+                "sequences": {seq: {"width": WIDTH, "height": HEIGHT,
+                                    "frames": CLI_FRAMES, "gop": 32}}}}}, f)
+
+        def run(tag, *extra):
+            _reset_counts()
+            t = time.time()
+            res = test_video.main([
+                "--test_config", cfg_path, "--force_frame_num",
+                str(CLI_FRAMES), "--rate_num", "1", "--q_indexes", "32",
+                "--write_stream", "1", "--stream_path",
+                os.path.join(tmp, tag), "--output_path",
+                os.path.join(tmp, tag + ".json"), "--verbose", "2", *extra])
+            wall = time.time() - t
+            counts = _no_kernel_launched(f"cli {tag}")
+            sm = res[seq]["rate_0"]
+            frames = [{"type": "PI"[sm["frame_type"][i] == 0],
+                       "encode_ms": sm["frame_encoding_time"][i] * 1e3,
+                       "decode_ms": sm["frame_decoding_time"][i] * 1e3,
+                       "bpp": sm["frame_bpp"][i], "psnr": sm["frame_psnr"][i]}
+                      for i in range(sm["frame_num"])]
+            if sm["frame_num"] != CLI_FRAMES or not all(
+                    math.isfinite(r["psnr"]) and r["bpp"] > 0 for r in frames):
+                raise AssertionError(f"cli {tag}: bad frames {frames}")
+            runs[tag] = {"wall_s": wall, "launches": counts, "frames": frames}
+            print(f"cli {tag}: {json.dumps(runs[tag])}", flush=True)
+            return sm
+
+        run("hem", "--i_frame_model", "intra_hem", "--p_frame_model",
+            "dmc_hem", "--decoded_frame_path", os.path.join(tmp, "decoded"))
+        again = _redecode_hem_pngs(os.path.join(tmp, "hem"), seq)
+        for i, recon in enumerate(again):
+            written = png.read_png(os.path.join(tmp, "decoded", seq,
+                                                f"im{i + 1:05d}.png"))
+            if not np.array_equal(written, recon):
+                raise AssertionError(f"cli hem: decoded PNG {i} differs from "
+                                     f"the re-decoded recon")
+        sm = run("evc_force_intra", "--i_frame_model", "evc_SS",
+                 "--force_intra")
+        if sm["i_frame_num"] != CLI_FRAMES:
+            raise AssertionError(f"cli evc --force_intra: {sm['frame_type']}")
+    print(f"cli checks: {CLI_FRAMES} intra_hem + dmc_hem decoded PNGs equal "
+          f"a fresh runtime pair's re-decode; evc_SS --force_intra coded "
+          f"{CLI_FRAMES} I-frames", flush=True)
+    results["hem_cli"] = runs
 
 
 def main() -> int:
@@ -1021,7 +1517,8 @@ def main() -> int:
     results: dict = {}
     phases = [kernel_phase, band_copy_phase, tile_warp_phase,
               reference_phase, main_path_phase, cli_phase,
-              diag_phase, evc_phase, evc_scalable_phase, image_cli_phase]
+              diag_phase, evc_phase, evc_scalable_phase, image_cli_phase,
+              hem_phase, hem_block_phase, canf_phase, hem_cli_phase]
     for i, phase in enumerate(phases):
         t = time.time()
         phase(results)
@@ -1034,13 +1531,19 @@ def main() -> int:
     cli_k1 = sum(r["launches"]["block_warp"] for r in results["cli"].values())
 
     def no_kernel_paths(kernel):
-        """Launches on the EVC / image-CLI paths (checked to be 0)."""
+        """Launches on the EVC / image-CLI / exact-mc HEM and CANF paths
+        (checked to be 0)."""
         return {
             "evc_runtimes": sum(r["launches"][kernel]
                                 for r in results["evc"].values()),
             "evc_scalable": results["evc_scalable"]["launches"][kernel],
             "image_cli": sum(r["launches"][kernel]
-                             for r in results["image_cli"].values())}
+                             for r in results["image_cli"].values()),
+            "hem_runtimes": results["hem"]["launches"][kernel],
+            "canf_runtimes": results["canf"]["launches"][kernel],
+            "hem_cli": sum(r["launches"][kernel]
+                           for r in results["hem_cli"].values())}
+    hem_k1 = results["hem_block"]["k1_64ch_full_res"]
     print(json.dumps({"kernels": [{
         "name": "block_warp", "route": "cuda",
         "source": "dcvc_tpu_torch/csrc/block_warp.cu",
@@ -1049,7 +1552,8 @@ def main() -> int:
         "launches": cli_k1,
         "launches_by_path": {
             "runtimes": results["launches"]["runtimes"]["block_warp"],
-            "cli": cli_k1, "diag_dma": 0, **no_kernel_paths("block_warp")},
+            "cli": cli_k1, "diag_dma": 0, **no_kernel_paths("block_warp"),
+            "hem_block_mc": results["hem_block"]["launches"]["block_warp"]},
         "max_abs_err": max(r["max_abs_err"] for n, r in k1.items()
                            if n.endswith("f32")),
         "max_abs_err_bf16": max(r["max_abs_err"] for n, r in k1.items()
@@ -1064,6 +1568,12 @@ def main() -> int:
         "ms_prep_bf16": k1["od_1080p_bf16"]["ms_prep"],
         "ms_warp_bf16": k1["od_1080p_bf16"]["ms_warp"],
         "share_of_bound_bf16": k1["od_1080p_bf16"]["share_of_bound"],
+        "hem_mc_64ch": {k: hem_k1[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound")},
+        "hem_mc_max_abs_err": max(
+            r["max_abs_err"]
+            for r in results["hem_block"]["k1_vs_plain"].values()),
     }, {
         "name": "band_copy", "route": "cuda",
         "source": "dcvc_tpu_torch/csrc/band_copy.cu",
@@ -1072,7 +1582,9 @@ def main() -> int:
         "launches": results["diag_dma"]["launches"],
         "launches_by_path": {"runtimes": 0, "cli": 0,
                              "diag_dma": results["diag_dma"]["launches"],
-                             **no_kernel_paths("band_copy")},
+                             **no_kernel_paths("band_copy"),
+                             "hem_block_mc": results["hem_block"]["launches"]
+                             ["band_copy"]},
         "max_abs_err": max(r["max_abs_err"]
                            for r in results["band_copy"].values()),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],

@@ -89,21 +89,13 @@ class EvcSpatialPrior(nn.Sequential):
                          DepthConvBlock(N * 2, N * 2))
 
 
-class _EvcCodec(nn.Module):
-    """What EVCIntra and ScalableEVC share: the hyperprior, the dual prior,
-    the decoder and the quant step."""
-
-    def __init__(self, dec_channels: Sequence[int], N: int, anchor_num: int):
-        super().__init__()
-        self.N = N
-        self.dec = EvcDecoder(dec_channels)
-        self.hyper_enc = EvcHyperEnc(N)
-        self.hyper_dec = EvcHyperDec(N)
-        self.y_prior_fusion = EvcPriorFusion(N)
-        self.y_spatial_prior = EvcSpatialPrior(N)
-        self.bit_estimator_z = BitEstimator(N)
-        self.q_basic = nn.Parameter(torch.ones(1, N, 1, 1))
-        self.q_scale = nn.Parameter(torch.ones(anchor_num, 1, 1, 1))
+class DualPriorCodec(nn.Module):
+    """What the EVC codecs and IntraNoARHem (``intra_hem.py``) share: the
+    quant step, the dual prior and the coding of a latent. A subclass
+    builds ``hyper_enc``, ``hyper_dec``, ``y_prior_fusion``,
+    ``y_spatial_prior``, ``bit_estimator_z``, ``q_basic``, ``q_scale`` and
+    the synthesis ``reconstruct`` (of ``y_hat`` times the quant step);
+    ``forward`` and ``compress_device`` code through one encoder ``enc``."""
 
     def get_curr_q(self, q_scale):
         return lower_bound(self.q_basic, 0.5) * q_scale
@@ -117,7 +109,7 @@ class _EvcCodec(nn.Module):
         return priors.separate_prior(self.y_prior_fusion(self.hyper_dec(z_hat)))
 
     def synthesize(self, y_hat, q_scale):
-        return self.dec(y_hat * self.get_curr_q(q_scale))
+        return self.reconstruct(y_hat * self.get_curr_q(q_scale))
 
     def dual_scales_step1(self, q_step, scales, means, half0, half1):
         return priors.dual_decode_scales(means, scales, q_step, half0, half1,
@@ -131,7 +123,7 @@ class _EvcCodec(nn.Module):
         q_step, scales, means = self.prior_params(z_hat)
         _, y_q, y_hat, scales_hat = priors.forward_dual_prior(
             y, means, scales, q_step, self.spatial_prior_chunks, quant=quant)
-        x_hat = self.dec(y_hat * curr_q)
+        x_hat = self.reconstruct(y_hat * curr_q)
         bits_y = bits.y_gaussian_bits(y_q, torch.clamp(scales_hat, 0.11, 1e10))
         bits_z = bits.z_bits(z_hat, self.bit_estimator_z)
         pixel_num = x.shape[2] * x.shape[3]
@@ -148,18 +140,8 @@ class _EvcCodec(nn.Module):
             "z_hat": z_hat,
             "y_q_planes": (y_q_w0, y_q_w1),
             "scales_planes": (s_w0, s_w1),
-            "x_hat": torch.clamp(self.dec(y_hat * curr_q), 0.0, 1.0),
+            "x_hat": torch.clamp(self.reconstruct(y_hat * curr_q), 0.0, 1.0),
         }
-
-
-class EVCIntra(_EvcCodec):
-    """Intra codec with independently sized encoder / decoder (e.g. EVC_SS)."""
-
-    def __init__(self, enc_channels: Sequence[int] = EVC_CHANNEL_GRID["L"],
-                 dec_channels: Sequence[int] = EVC_CHANNEL_GRID["L"],
-                 N: int = 192, anchor_num: int = 4):
-        super().__init__(dec_channels, N, anchor_num)
-        self.enc = EvcEncoder(enc_channels)
 
     def forward(self, x, q_scale, quant_mode: str = "round"):
         """Estimated-bits forward: x_hat + bit costs. ``x`` [B,3,H,W]."""
@@ -179,6 +161,35 @@ class EVCIntra(_EvcCodec):
         """Device half of compress: everything up to the symbol planes."""
         curr_q = self.get_curr_q(q_scale)
         return self._compress_latent(self.enc(x) / curr_q, curr_q)
+
+
+class _EvcCodec(DualPriorCodec):
+    """The EVC nets: decoder, hyperprior and prior stacks."""
+
+    def __init__(self, dec_channels: Sequence[int], N: int, anchor_num: int):
+        super().__init__()
+        self.N = N
+        self.dec = EvcDecoder(dec_channels)
+        self.hyper_enc = EvcHyperEnc(N)
+        self.hyper_dec = EvcHyperDec(N)
+        self.y_prior_fusion = EvcPriorFusion(N)
+        self.y_spatial_prior = EvcSpatialPrior(N)
+        self.bit_estimator_z = BitEstimator(N)
+        self.q_basic = nn.Parameter(torch.ones(1, N, 1, 1))
+        self.q_scale = nn.Parameter(torch.ones(anchor_num, 1, 1, 1))
+
+    def reconstruct(self, y):
+        return self.dec(y)
+
+
+class EVCIntra(_EvcCodec):
+    """Intra codec with independently sized encoder / decoder (e.g. EVC_SS)."""
+
+    def __init__(self, enc_channels: Sequence[int] = EVC_CHANNEL_GRID["L"],
+                 dec_channels: Sequence[int] = EVC_CHANNEL_GRID["L"],
+                 N: int = 192, anchor_num: int = 4):
+        super().__init__(dec_channels, N, anchor_num)
+        self.enc = EvcEncoder(enc_channels)
 
 
 def make_evc(variant: str = "LL", N: int = 192) -> EVCIntra:

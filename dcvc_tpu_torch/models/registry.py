@@ -1,12 +1,14 @@
-"""Model + runtime registry (``dcvc_tpu/models/registry.py``): the DC pair
-and the EVC intra family.
+"""Model + runtime registry (``dcvc_tpu/models/registry.py``): the DC pair,
+the EVC intra family, the HEM pair and the CANF-VC hybrid.
 
 ``build(name, seed, device, state_dict=None, **kwargs)`` returns
 ``(module, runtime)``: the module with seeded random weights, or
 ``state_dict`` loaded with ``strict=True``, and its coding runtime (not yet
 ``update()``d). ``evc_XY`` is the EVC grid (encoder size X, decoder size Y,
-each L, M or S), ``evc_scalable`` the scalable encoder bank. Every other
-name of the JAX registry waits for ROADMAP Queue 1 item 13.
+each L, M or S), ``evc_scalable`` the scalable encoder bank; ``intra_hem``
+codes on ``EvcCodecRuntime`` and ``dmc_hem`` / ``canfvc_dmc`` on
+``HemVideoRuntime``, as in the JAX registry. TCM, gen-1 and the zoo wait
+for ROADMAP Queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from __future__ import annotations
 from ..device import resolve_device
 
 EVC_MODELS = tuple(f"evc_{e}{d}" for e in "LMS" for d in "LMS")
-PORTED = ("intra_dc", "dmc_dc", *EVC_MODELS, "evc_scalable")
+PORTED = ("intra_dc", "dmc_dc", *EVC_MODELS, "evc_scalable", "intra_hem",
+          "dmc_hem", "canfvc_dmc")
 MODEL_NAMES = [
     "evc_LL", "evc_LM", "evc_LS", "evc_ML", "evc_MM", "evc_MS", "evc_SL",
     "evc_SS", "evc_scalable",
@@ -31,9 +34,12 @@ def build(name: str, seed: int = 0, device=None, state_dict=None, **kwargs):
     from .evc import build_evc
     from .evc_scalable import build_evc_scalable
     from .intra_dc import build_intra_dc
-    from .runtime import (DmcRuntime, EvcCodecRuntime, IntraDcRuntime,
-                          ScalableEvcRuntime)
+    from .intra_hem import build_intra_hem
+    from .runtime import (DmcRuntime, EvcCodecRuntime, HemVideoRuntime,
+                          IntraDcRuntime, ScalableEvcRuntime)
+    from .video_canf import build_canf
     from .video_dc import build_dmc
+    from .video_hem import build_dmc_hem
 
     if name not in MODEL_NAMES and name not in EVC_MODELS:
         raise KeyError(f"unknown model {name}")
@@ -49,7 +55,10 @@ def build(name: str, seed: int = 0, device=None, state_dict=None, **kwargs):
         build_fn, runtime_cls = {
             "evc_scalable": (build_evc_scalable, ScalableEvcRuntime),
             "intra_dc": (build_intra_dc, IntraDcRuntime),
-            "dmc_dc": (build_dmc, DmcRuntime)}[name]
+            "dmc_dc": (build_dmc, DmcRuntime),
+            "intra_hem": (build_intra_hem, EvcCodecRuntime),
+            "dmc_hem": (build_dmc_hem, HemVideoRuntime),
+            "canfvc_dmc": (build_canf, HemVideoRuntime)}[name]
         module = build_fn(seed=seed, device=dev, **kwargs)
     if state_dict is not None:
         module.load_state_dict(state_dict, strict=True)

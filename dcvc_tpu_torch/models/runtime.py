@@ -1,12 +1,13 @@
 """Codec runtimes: device compute + host rANS entropy coding.
 
 Counterpart of ``dcvc_tpu/models/runtime.py`` (``_RuntimeBase``,
-``EvcCodecRuntime``, ``ScalableEvcRuntime``, ``DmcRuntime``,
-``IntraDcRuntime``; its ``_build_indexes_i16`` is
+``EvcCodecRuntime``, ``ScalableEvcRuntime``, ``HemVideoRuntime``,
+``DmcRuntime``, ``IntraDcRuntime``; its ``_build_indexes_i16`` is
 ``GaussianConditionalCoder.build_indexes`` here); the layer the
 reference spreads across CompressionModel.update / compress / decompress
 (DCVC-DC/src/models/common_model.py:63-68, image_model.py:198-252,
-video_model.py:425-557; EVC/src/models/image_model.py:131-181). Only int16
+video_model.py:425-557; EVC/src/models/image_model.py:131-181;
+DCVC-HEM/src/models/video_model.py:263-375). Only int16
 symbol and scale-index planes cross to the host, in the JAX package's NHWC
 order, so streams are interchangeable with ``dcvc_tpu``'s. The decode is
 the plain serial chain per prior step (four-part or dual): scales on the
@@ -45,6 +46,18 @@ def _symbols_nhwc(plane: torch.Tensor) -> np.ndarray:
     """Flat int16 symbols of a y_q plane in the stream's NHWC order."""
     q = torch.round(torch.clamp(plane.float(), -30000, 30000)).to(torch.int16)
     return _to_host_nhwc(q).reshape(-1)
+
+
+def _dual_chain(q_step, scales, means, scales_step1, sym_source):
+    """The serial dual-prior decode: step 0's scales, its symbols, step 1's
+    scales from what step 0 decoded (``scales_step1``), its symbols; the two
+    channel halves of y_hat before the quant step."""
+    scales_r, means_pair = priors.dual_decode_scales(means, scales, q_step,
+                                                     None, None, None, 0)
+    h0, h1 = priors.dual_decode_update(sym_source(scales_r), means_pair, 0)
+    scales_r, means_pair = scales_step1(q_step, scales, means, h0, h1)
+    d0, d1 = priors.dual_decode_update(sym_source(scales_r), means_pair, 1)
+    return h0 + d0, h1 + d1
 
 
 class _RuntimeBase:
@@ -154,13 +167,9 @@ class EvcCodecRuntime(_RuntimeBase):
         step's symbol plane."""
         m = self.module
         q_step, scales, means = m.prior_params(z_hat)
-        scales_r, means_pair = priors.dual_decode_scales(
-            means, scales, q_step, None, None, None, 0)
-        h0, h1 = priors.dual_decode_update(sym_source(scales_r), means_pair, 0)
-        scales_r, means_pair = m.dual_scales_step1(q_step, scales, means,
-                                                   h0, h1)
-        d0, d1 = priors.dual_decode_update(sym_source(scales_r), means_pair, 1)
-        return h0 + d0, h1 + d1, q_step
+        half0, half1 = _dual_chain(q_step, scales, means, m.dual_scales_step1,
+                                   sym_source)
+        return half0, half1, q_step
 
     def _encode_aligned(self, out) -> bytes:
         """Write z and the symbol planes of ``compress_device``'s ``out``
@@ -225,6 +234,116 @@ class ScalableEvcRuntime(EvcCodecRuntime):
         out = self.module.compress_device(x, q_scale, cid)
         return {"bit_stream": self._encode_aligned(out),
                 "x_hat": out["x_hat"], "enc_id": cid}
+
+
+class HemVideoRuntime(_RuntimeBase):
+    """Runtime for DMCHem and CANFVCDmc (dual checkerboard priors on both
+    latents).
+
+    Parity: DCVC-HEM/src/models/video_model.py:263-375 compress /
+    decompress. Stream order: z_mv, mv_y w0, mv_y w1, z, y w0, y w1
+    (:306-313). The y latents are 4 z_h x 4 z_w (the pad-to-64 contract).
+    ``mv_y_q_scale`` / ``y_q_scale`` are scalars.
+    """
+
+    y_distribution = "laplace"
+
+    def __init__(self, module, ec_thread=False, stream_part=1, device=None):
+        super().__init__(module, ec_thread, stream_part, device)
+        # decoder-aligned coding indexes (_aligned_indexes): opt in, as in
+        # the JAX package and DmcRuntime
+        self.aligned_enc = os.environ.get("DCVC_TPU_ALIGNED_ENC") == "1"
+
+    def _z_estimators(self):
+        return ["bit_estimator_z", "bit_estimator_z_mv"]
+
+    @torch.no_grad()
+    def forward_one_frame(self, x, dpb, mv_y_q_scale, y_q_scale):
+        """Estimated-bits P-frame: ``{"dpb", "bit", "bpp", ...}``."""
+        return self.module(self._tensor(x), dpb, self._tensor(mv_y_q_scale),
+                           self._tensor(y_q_scale))
+
+    def _decode_latents(self, mv_z_hat, z_hat_fn, dpb, mv_q, yh, yw,
+                        sym_source):
+        """The decoder's chain from the z planes to y_hat (before its q):
+        mv prior, mv dual decode, motion stage, y dual decode. ``z_hat_fn()``
+        gives z when the chain reaches it (the stream holds it after the mv
+        planes). Returns ``(y_hat, contexts, mv_y_hat times its q)``."""
+        m = self.module
+        mv_qsm = m.decode_mv_prior(mv_z_hat, dpb["ref_mv_y"], yh, yw)
+        h0, h1 = _dual_chain(*mv_qsm, m.mv_dual_scales_step1, sym_source)
+        mv_y_hat = torch.cat([h0, h1], dim=1) * torch.clamp_min(mv_qsm[0], 0.5)
+        y_qsm, contexts, mv_y_hat = m.decode_motion_stage(
+            mv_y_hat, mv_q, dpb, z_hat_fn(), yh, yw)
+        h0, h1 = _dual_chain(*y_qsm, m.y_dual_scales_step1, sym_source)
+        y_hat = torch.cat([h0, h1], dim=1) * torch.clamp_min(y_qsm[0], 0.5)
+        return y_hat, contexts, mv_y_hat
+
+    def _aligned_indexes(self, mv_z_hat, z_hat, sym, dpb, mv_q, yh, yw):
+        """Decoder-identical coding indexes of the 4 dual-prior planes (mv
+        w0, mv w1, y w0, y w1): replays the decoder's chain with the known
+        symbols in place of rANS (``dcvc_tpu/models/runtime.py:
+        HemVideoRuntime._aligned_indexes``). The z planes and the symbols
+        enter as fresh NCHW f32 tensors, as the decoder receives them."""
+        recorded = []
+        offset = 0
+
+        def sym_source(scales_r):
+            nonlocal offset
+            idx = _to_host_nhwc(self.gaussian.build_indexes(scales_r))
+            recorded.append(idx.reshape(-1))
+            plane = sym[offset:offset + idx.size].reshape(idx.shape)
+            offset += idx.size
+            return self._from_host_nhwc(plane)
+
+        z_fresh = self._from_host_nhwc(_to_host_nhwc(z_hat))
+        self._decode_latents(self._from_host_nhwc(_to_host_nhwc(mv_z_hat)),
+                             lambda: z_fresh, dpb, mv_q, yh, yw, sym_source)
+        return recorded
+
+    @torch.no_grad()
+    def compress(self, x, dpb, mv_y_q_scale, y_q_scale):
+        x = self._tensor(x)
+        mv_q = self._tensor(mv_y_q_scale)
+        out = self.module.compress_device(x, dpb, mv_q,
+                                          self._tensor(y_q_scale))
+        planes = out["mv_y_q_planes"] + out["y_q_planes"]
+        syms = [_symbols_nhwc(q) for q in planes]
+        if self.aligned_enc:
+            zh, zw = get_downsampled_shape(x.shape[2], x.shape[3], 64)
+            idx = self._aligned_indexes(out["mv_z_hat"], out["z_hat"],
+                                        np.concatenate(syms), dpb, mv_q,
+                                        zh * 4, zw * 4)
+        else:
+            idx = [_to_host_nhwc(self.gaussian.build_indexes(s)).reshape(-1)
+                   for s in out["mv_scales_planes"] + out["scales_planes"]]
+        self.entropy_coder.reset()
+        self._encode_z("bit_estimator_z_mv", out["mv_z_hat"])
+        for i in (0, 1):
+            self.gaussian.encode_with_indexes(self.entropy_coder, syms[i],
+                                              idx[i])
+        self._encode_z("bit_estimator_z", out["z_hat"])
+        for i in (2, 3):
+            self.gaussian.encode_with_indexes(self.entropy_coder, syms[i],
+                                              idx[i])
+        self.entropy_coder.flush()
+        return {"dpb": out["dpb"],
+                "bit_stream": self.entropy_coder.get_encoded_stream()}
+
+    @torch.no_grad()
+    def decompress(self, dpb, string, height, width, mv_y_q_scale, y_q_scale):
+        m = self.module
+        self.entropy_coder.set_stream(string)
+        zh, zw = get_downsampled_shape(height, width, 64)
+        shape = (1, m.channel_N, zh, zw)
+        mv_z_hat = self._decode_z("bit_estimator_z_mv", shape)
+        y_hat, contexts, mv_y_hat = self._decode_latents(
+            mv_z_hat, lambda: self._decode_z("bit_estimator_z", shape), dpb,
+            self._tensor(mv_y_q_scale), zh * 4, zw * 4, self._host_decode)
+        x_hat, feature, y_hat = m.decode_recon_stage(
+            y_hat, self._tensor(y_q_scale), contexts)
+        return {"dpb": {"ref_frame": x_hat, "ref_feature": feature,
+                        "ref_y": y_hat, "ref_mv_y": mv_y_hat}}
 
 
 class DmcRuntime(_RuntimeBase):

@@ -1,14 +1,25 @@
 """Runtime adapters to the DC-shaped protocol the GOP runner drives
-(``dcvc_tpu/runner/adapters.py:211-241``, the DC part).
+(``dcvc_tpu/runner/adapters.py``):
 
-The DC runtimes already speak that protocol, so adapting them is the
-identity. The adapters of the other generations wait for them (ROADMAP
-Queue 1 item 13).
+    i.forward(x, q_in_ckpt, q_index)               -> {x_hat, bit}
+    i.compress(x, q_in_ckpt, q_index)              -> {bit_stream}
+    i.decompress(stream, h, w, q_in_ckpt, q_index) -> {x_hat}
+    p.forward_one_frame(x, dpb, q_in_ckpt, q_index, frame_idx) -> {dpb, bit}
+    p.compress(x, dpb, q_in_ckpt, q_index, frame_idx)          -> {bit_stream}
+    p.decompress(dpb, stream, h, w, q_in_ckpt, q_index, frame_idx) -> {dpb}
+
+The DC runtimes speak it already. The EVC / HEM intra runtime and the
+HEM / CANF P runtime take continuous q_scales: a q_index maps to one
+through the checkpoint's anchors (q_in_ckpt) or their 64-point
+log-interpolated fine table. TCM, gen-1 and the zoo wait for their
+generations (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
 
-from ..models.runtime import DmcRuntime, IntraDcRuntime
+from ..models.intra_dc import build_fine_q_tables
+from ..models.runtime import (DmcRuntime, EvcCodecRuntime, HemVideoRuntime,
+                              IntraDcRuntime)
 
 
 def pad_for_model(model: str) -> int:
@@ -16,6 +27,81 @@ def pad_for_model(model: str) -> int:
     generations to 64. Real-coding containers desync if encoder and decoder
     disagree on it."""
     return 16 if model in ("intra_dc", "dmc_dc") else 64
+
+
+class _QTable:
+    """q_index -> q_scale through a module's anchors (``q_in_ckpt``) or
+    their 64-point log-interpolated fine table."""
+
+    def __init__(self, anchors):
+        self.anchors = anchors.detach().cpu().numpy().reshape(-1)
+        self.fine = build_fine_q_tables(self.anchors)
+
+    def __call__(self, q_in_ckpt: bool, q_index: int) -> float:
+        return float(self.anchors[q_index] if q_in_ckpt
+                     else self.fine[q_index])
+
+
+class _Adapter:
+    def __init__(self, rt):
+        self.rt = rt
+
+    @property
+    def device(self):
+        return self.rt.device
+
+    def update(self, force: bool = False):
+        self.rt.update(force)
+
+
+class QScaleIntraAdapter(_Adapter):
+    """EVC / HEM intra: one continuous q_scale argument."""
+
+    def __init__(self, rt):
+        super().__init__(rt)
+        self._q = _QTable(rt.module.q_scale)
+
+    def forward(self, x, q_in_ckpt, q_index):
+        return self.rt.forward(x, self._q(q_in_ckpt, q_index))
+
+    def compress(self, x, q_in_ckpt, q_index):
+        return self.rt.compress(x, self._q(q_in_ckpt, q_index))
+
+    def decompress(self, stream, height, width, q_in_ckpt, q_index):
+        return self.rt.decompress(stream, height, width,
+                                  self._q(q_in_ckpt, q_index))
+
+
+_HEM_DPB_KEYS = ("ref_frame", "ref_feature", "ref_y", "ref_mv_y")
+
+
+class HemPFrameAdapter(_Adapter):
+    """DMCHem / CANFVCDmc: separate mv / y q_scales, the 4-key DPB."""
+
+    def __init__(self, rt):
+        super().__init__(rt)
+        self._mv_q = _QTable(rt.module.mv_y_q_scale)
+        self._y_q = _QTable(rt.module.y_q_scale)
+
+    def _qs(self, q_in_ckpt, q_index):
+        return self._mv_q(q_in_ckpt, q_index), self._y_q(q_in_ckpt, q_index)
+
+    @staticmethod
+    def _dpb(dpb):
+        return {k: dpb.get(k) for k in _HEM_DPB_KEYS}
+
+    def forward_one_frame(self, x, dpb, q_in_ckpt, q_index, frame_idx):
+        return self.rt.forward_one_frame(x, self._dpb(dpb),
+                                         *self._qs(q_in_ckpt, q_index))
+
+    def compress(self, x, dpb, q_in_ckpt, q_index, frame_idx):
+        return self.rt.compress(x, self._dpb(dpb),
+                                *self._qs(q_in_ckpt, q_index))
+
+    def decompress(self, dpb, stream, height, width, q_in_ckpt, q_index,
+                   frame_idx):
+        return self.rt.decompress(self._dpb(dpb), stream, height, width,
+                                  *self._qs(q_in_ckpt, q_index))
 
 
 def _not_ported(rt):
@@ -27,10 +113,14 @@ def _not_ported(rt):
 def adapt_i_runtime(rt):
     if isinstance(rt, IntraDcRuntime):
         return rt
+    if isinstance(rt, EvcCodecRuntime):
+        return QScaleIntraAdapter(rt)
     raise _not_ported(rt)
 
 
 def adapt_p_runtime(rt):
     if rt is None or isinstance(rt, DmcRuntime):
         return rt
+    if isinstance(rt, HemVideoRuntime):
+        return HemPFrameAdapter(rt)
     raise _not_ported(rt)

@@ -9,14 +9,14 @@ results JSON ``{"per_image": {image: {rate_i: ...}}, "average": {rate_i:
     python -m dcvc_tpu_torch.tools.test_image --model evc_LL \\
         --img_folder imgs [--device cuda|cpu] [--write_stream 1] ...
 
-Models: the EVC grid ``evc_XY``, ``evc_scalable`` and ``intra_dc``; the
-others raise (ROADMAP Queue 1 item 13). Runs on the card unless ``--device
+Models: the EVC grid ``evc_XY``, ``evc_scalable``, ``intra_hem`` and
+``intra_dc``; the zoo raises (ROADMAP Queue 1 item 13). Runs on the card unless ``--device
 cpu``; without a card it exits with the device message. Weights are seeded
 random unless ``--model_path`` names a published ``.pth`` / ``.pth.tar``
 or a JAX-package ``.npz``. Images are read without Pillow
 (``utils/png.py``) and edge-padded to a multiple of 64. Rate points: EVC
-models log-interpolate ``rate_num`` q_scales between the first and last
-anchor of the checkpoint's ``q_scale``, rounded to 1/100 for streams
+and HEM models log-interpolate ``rate_num`` q_scales between the first and
+last anchor of the checkpoint's ``q_scale``, rounded to 1/100 for streams
 (``get_rounded_q``) and decoded as ``q_index / 100``; ``intra_dc`` takes
 ``rate_num`` q_indexes of its 64-point fine table.
 """
@@ -49,7 +49,7 @@ def parse_args(argv=None):
 
 def _q_scales(rt, rate_num: int):
     """Rate points: fine-table q_indexes (intra_dc) or log-interpolated
-    q_scale anchors (EVC)."""
+    q_scale anchors (EVC, HEM)."""
     from ..models.runtime import IntraDcRuntime
 
     if isinstance(rt, IntraDcRuntime):

@@ -10,6 +10,8 @@ table (rate_num up to 64).
     python -m dcvc_tpu_torch.tools.test_video --test_config cfg.json \\
         [--device cuda|cpu] [--write_stream 1] [--model_path_i I.pth] ...
 
+I-frame models: ``intra_dc``, the EVC grid ``evc_XY``, ``evc_scalable`` and
+``intra_hem``; P-frame models: ``dmc_dc``, ``dmc_hem`` and ``canfvc_dmc``.
 Runs on the card unless ``--device cpu``; without a card it exits with the
 device message. Weights are seeded random unless ``--model_path_i`` /
 ``--model_path_p`` name a published ``.pth`` / ``.pth.tar`` or a JAX-package
@@ -48,8 +50,8 @@ def parse_args(argv=None):
     p.add_argument("--stream_part_p", type=int, default=1)
     p.add_argument("--aligned_enc", type=int, default=None,
                    help="1: derive P-frame coding indexes from the decoder's "
-                        "own chain (DmcRuntime.aligned_enc). Defaults to the "
-                        "DCVC_TPU_ALIGNED_ENC env setting")
+                        "own chain (the P runtime's aligned_enc). Defaults to "
+                        "the DCVC_TPU_ALIGNED_ENC env setting")
     p.add_argument("--output_path", type=str, default="out/results.json")
     p.add_argument("--verbose", type=int, default=1)
     p.add_argument("--worker_num", type=int, default=1,
@@ -60,15 +62,16 @@ def parse_args(argv=None):
                    help="420->444 model-input chroma upsample: 0 nearest "
                         "(reference default), 1 bilinear (RD cross-check)")
     p.add_argument("--od_warp", default="auto",
-                   help="OffsetDiversity warp mode for dmc_dc: 'auto' = the "
+                   help="OffsetDiversity warp mode (dmc_dc): 'auto' = the "
                         "block kernel on the card, exact on the CPU; or "
                         "'exact' / 'tile:T,R[,median|mean]' / "
                         "'block:Dh,Rv[,BH,BW[,base]]' explicitly")
     p.add_argument("--mc_warp", default="auto",
                    help="motion-compensation warp mode (warpframe + context "
-                        "warps): same grammar as --od_warp")
+                        "warps; dmc_dc, dmc_hem): same grammar as --od_warp")
     p.add_argument("--me_warp", default="auto",
-                   help="SPyNet pyramid warp mode: same grammar as --od_warp")
+                   help="SPyNet pyramid warp mode (dmc_dc): same grammar as "
+                        "--od_warp")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -109,9 +112,15 @@ def _build_runtimes(args, device):
         def mode(flag, default):
             return default if flag == "auto" else flag
 
-        p_kwargs = {"od_warp_mode": mode(args.od_warp, od_d),
-                    "mc_warp_mode": mode(args.mc_warp, mc_d),
-                    "me_warp_mode": mode(args.me_warp, me_d)}
+        # each P model takes the warp sites it has, as the JAX CLI passes
+        # them (tools/test_video.py:128-138): DMC all three, DMCHem the mc
+        # warps, CANF none (its warps are exact)
+        p_kwargs = {}
+        if args.p_frame_model == "dmc_dc":
+            p_kwargs.update(od_warp_mode=mode(args.od_warp, od_d),
+                            me_warp_mode=mode(args.me_warp, me_d))
+        if args.p_frame_model in ("dmc_dc", "dmc_hem"):
+            p_kwargs["mc_warp_mode"] = mode(args.mc_warp, mc_d)
         _, p_rt = build(args.p_frame_model, device=device,
                         state_dict=weights(args.model_path_p,
                                            args.p_frame_model), **p_kwargs)

@@ -1,5 +1,5 @@
-"""Checkpoint loading for the DC and EVC models: the ``load_params`` role
-of ``dcvc_tpu/utils/checkpoint.py``.
+"""Checkpoint loading for the DC, EVC, HEM and CANF-VC models: the
+``load_params`` role of ``dcvc_tpu/utils/checkpoint.py``.
 
 Two formats give a port ``state_dict``:
   * a published torch checkpoint (``.pth``, ``.pth.tar``, ``.pt``,
@@ -10,7 +10,9 @@ Two formats give a port ``state_dict``:
     checkpoint loaded into ``evc_scalable`` has its one encoder ``enc.*``
     copied onto every ``encs.{i}.*``, as ``port_dc.convert_evc_scalable``
     and the reference's shape-tolerant load do
-    (EVC/src/models/scalable_encoder_model.py:45-69);
+    (EVC/src/models/scalable_encoder_model.py:45-69); a CANF-VC checkpoint
+    drops the ``feature_adaptor_P.*`` its DMC base class carries but never
+    uses, as ``port_hem.convert_canf_dmc`` does;
   * the JAX package's native ``.npz`` (its ``save_params``: path-joined
     flax arrays), unflattened here and turned into a ``state_dict`` by
     ``utils/convert.py``.
@@ -22,11 +24,14 @@ import numpy as np
 import torch
 
 from ..models.registry import EVC_MODELS
-from .convert import (dmc_from_jax, evc_from_jax, evc_scalable_from_jax,
-                      intra_dc_from_jax)
+from .convert import (canf_dmc_from_jax, dmc_from_jax, dmc_hem_from_jax,
+                      evc_from_jax, evc_scalable_from_jax, intra_dc_from_jax,
+                      intra_hem_from_jax)
 
 _FROM_JAX = {"intra_dc": intra_dc_from_jax, "dmc_dc": dmc_from_jax,
              "evc_scalable": evc_scalable_from_jax,
+             "intra_hem": intra_hem_from_jax, "dmc_hem": dmc_hem_from_jax,
+             "canfvc_dmc": canf_dmc_from_jax,
              **{name: evc_from_jax for name in EVC_MODELS}}
 TORCH_SUFFIXES = (".pth", ".pth.tar", ".pt", ".ckpt")
 SCALABLE_ENC_NUM = 4
@@ -61,6 +66,9 @@ def load_state_dict(path: str, model: str) -> dict:
                    if k.startswith("enc.")}
             for i in range(SCALABLE_ENC_NUM):
                 sd.update({f"encs.{i}.{k}": v.clone() for k, v in enc.items()})
+        if model == "canfvc_dmc":
+            sd = {k: v for k, v in sd.items()
+                  if not k.startswith("feature_adaptor_P.")}
         return sd
     with np.load(path) as data:
         tree = _unflatten({k: data[k] for k in data.files})

@@ -1,9 +1,12 @@
 """Weights across: the JAX package's param trees -> port ``state_dict``s.
 
 The exact inverse of ``dcvc_tpu/utils/port_dc.py``'s ``convert_intra_dc``,
-``convert_dmc``, ``convert_evc`` and ``convert_evc_scalable``: flax HWIO kernels become torch OIHW, transposed-conv
-kernels are flipped back, and OffsetDiversity's block-diagonal dense fusion
-becomes the reference's ``groups=16`` 1x1 conv. The input is a nested dict
+``convert_dmc``, ``convert_evc`` and ``convert_evc_scalable`` and of
+``dcvc_tpu/utils/port_hem.py``'s ``convert_intra_hem``, ``convert_dmc_hem``
+and ``convert_canf_dmc``: flax HWIO kernels become torch OIHW, Dense
+kernels are transposed, transposed-conv kernels are flipped back, and
+OffsetDiversity's block-diagonal dense fusion becomes the reference's
+``groups=16`` 1x1 conv. The input is a nested dict
 of arrays (``{"params": ...}`` or its inside); nothing of JAX is imported.
 Every leaf must be used, and the result loads with
 ``load_state_dict(strict=True)``.
@@ -63,6 +66,10 @@ class FlaxToTorch:
         w = self._take((*f, "kernel")).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
         self._set(_key(t, "weight"), w)
         self._set(_key(t, "bias"), self._take((*f, "bias")))
+
+    def dense(self, t, *f):
+        """flax Dense [in, out] -> torch Linear [out, in] (no bias)."""
+        self._set(_key(t, "weight"), self._take((*f, "kernel")).T)
 
     def param(self, t, f_path, shape=None):
         v = self._take(f_path)
@@ -191,11 +198,7 @@ def intra_dc_from_jax(params) -> dict:
 def dmc_from_jax(params) -> dict:
     """DMC flax params -> port (= reference) state_dict."""
     m = FlaxToTorch(params)
-    for lvl in range(4):
-        for j in range(1, 6):
-            m.conv(f"optic_flow.moduleBasic.{lvl}.conv{j}",
-                   "optic_flow", f"basic{lvl}", f"conv{j}")
-
+    _spynet(m)
     m.conv("align.conv_offset.0", "align", "offset1")
     m.conv("align.conv_offset.2", "align", "offset2")
     m.conv("align.conv_offset.4", "align", "offset3")
@@ -225,9 +228,7 @@ def dmc_from_jax(params) -> dict:
     m.dcb("mv_decoder.dec_3.0", "mv_decoder", "dec3_dcb", two=False)
     m.subpel("mv_decoder.dec_3.1", "mv_decoder", "dec3_up")
 
-    enc = "mv_hyper_prior_encoder"
-    for i, idx in enumerate((0, 2, 4, 6, 8)):
-        m.conv(f"{enc}.{idx}", enc, f"c{i + 1}")
+    _hyper_enc(m, "mv_hyper_prior_encoder")
     _hyper_dec(m, "mv_hyper_prior_decoder")
 
     for i in (0, 1):
@@ -245,38 +246,9 @@ def dmc_from_jax(params) -> dict:
     m.conv("feature_adaptor_I", "feature_adaptor_I")
     for i in range(3):
         m.conv(f"feature_adaptor.{i}", f"feature_adaptor_{i}")
-    fe = "feature_extractor"
-    for i in (1, 2, 3):
-        m.conv(f"{fe}.conv{i}", fe, f"conv{i}")
-        m.resblock(f"{fe}.res_block{i}", fe, f"res{i}")
-
-    fuse = "context_fusion_net"
-    m.subpel(f"{fuse}.conv3_up", fuse, "conv3_up")
-    m.resblock(f"{fuse}.res_block3_up", fuse, "res3_up")
-    m.conv(f"{fuse}.conv3_out", fuse, "conv3_out")
-    m.resblock(f"{fuse}.res_block3_out", fuse, "res3_out")
-    m.subpel(f"{fuse}.conv2_up", fuse, "conv2_up")
-    m.resblock(f"{fuse}.res_block2_up", fuse, "res2_up")
-    m.conv(f"{fuse}.conv2_out", fuse, "conv2_out")
-    m.resblock(f"{fuse}.res_block2_out", fuse, "res2_out")
-    m.conv(f"{fuse}.conv1_out", fuse, "conv1_out")
-    m.resblock(f"{fuse}.res_block1_out", fuse, "res1_out")
-
-    enc = "contextual_encoder"
-    m.conv(f"{enc}.conv1", enc, "conv1")
-    m.resblock(f"{enc}.res1", enc, "res1")
-    m.conv(f"{enc}.conv2", enc, "conv2")
-    m.resblock(f"{enc}.res2", enc, "res2")
-    m.conv(f"{enc}.conv3", enc, "conv3")
-    m.conv(f"{enc}.conv4", enc, "conv4")
-
-    dec = "contextual_decoder"
-    m.subpel(f"{dec}.up1", dec, "up1")
-    m.subpel(f"{dec}.up2", dec, "up2")
-    m.resblock(f"{dec}.res1", dec, "res1")
-    m.subpel(f"{dec}.up3", dec, "up3")
-    m.resblock(f"{dec}.res2", dec, "res2")
-    m.subpel(f"{dec}.up4", dec, "up4")
+    _feature_pyramid(m)
+    _ctx_enc(m, "contextual_encoder", "contextual_encoder")
+    _ctx_dec(m, "contextual_decoder", "contextual_decoder")
 
     rg = "recon_generation_net"
     m.conv(f"{rg}.first_conv", rg, "first_conv")
@@ -284,12 +256,9 @@ def dmc_from_jax(params) -> dict:
     m.unet(f"{rg}.unet_2", rg, "unet_2", two=False)
     m.conv(f"{rg}.recon_conv", rg, "recon_conv")
 
-    enc = "contextual_hyper_prior_encoder"
-    for i, idx in enumerate((0, 2, 4)):
-        m.conv(f"{enc}.{idx}", enc, f"c{i + 1}")
+    _ctx_hyper_enc(m)
     _hyper_dec(m, "contextual_hyper_prior_decoder")
-    m.conv("temporal_prior_encoder.0", "temporal_prior_encoder_1")
-    m.conv("temporal_prior_encoder.2", "temporal_prior_encoder_2")
+    _temporal_prior_encoder(m)
 
     for i in (0, 1):
         m.dcb(f"y_prior_fusion_adaptor_{i}", f"y_prior_fusion_adaptor_{i}",
@@ -312,12 +281,70 @@ def dmc_from_jax(params) -> dict:
     return m.finish()
 
 
-def _hyper_dec(m: FlaxToTorch, t: str):
-    """HyperDec: Sequential keys .0 .2(subpel) .4 .6(subpel) .8."""
+def _spynet(m: FlaxToTorch):
+    for lvl in range(4):
+        for j in range(1, 6):
+            m.conv(f"optic_flow.moduleBasic.{lvl}.conv{j}",
+                   "optic_flow", f"basic{lvl}", f"conv{j}")
+
+
+def _feature_pyramid(m: FlaxToTorch):
+    """feature_extractor and context_fusion_net (DC and HEM alike)."""
+    fe = "feature_extractor"
+    for i in (1, 2, 3):
+        m.conv(f"{fe}.conv{i}", fe, f"conv{i}")
+        m.resblock(f"{fe}.res_block{i}", fe, f"res{i}")
+    fuse = "context_fusion_net"
+    m.subpel(f"{fuse}.conv3_up", fuse, "conv3_up")
+    m.resblock(f"{fuse}.res_block3_up", fuse, "res3_up")
+    m.conv(f"{fuse}.conv3_out", fuse, "conv3_out")
+    m.resblock(f"{fuse}.res_block3_out", fuse, "res3_out")
+    m.subpel(f"{fuse}.conv2_up", fuse, "conv2_up")
+    m.resblock(f"{fuse}.res_block2_up", fuse, "res2_up")
+    m.conv(f"{fuse}.conv2_out", fuse, "conv2_out")
+    m.resblock(f"{fuse}.res_block2_out", fuse, "res2_out")
+    m.conv(f"{fuse}.conv1_out", fuse, "conv1_out")
+    m.resblock(f"{fuse}.res_block1_out", fuse, "res1_out")
+
+
+def _ctx_enc(m: FlaxToTorch, t: str, *f):
+    """ContextualEncoder (DC and HEM alike)."""
+    for name in ("conv1", "res1", "conv2", "res2", "conv3", "conv4"):
+        (m.resblock if name.startswith("res") else m.conv)(
+            f"{t}.{name}", *f, name)
+
+
+def _ctx_dec(m: FlaxToTorch, t: str, *f):
+    """ContextualDecoder (DC and HEM alike)."""
+    for name in ("up1", "up2", "res1", "up3", "res2", "up4"):
+        (m.resblock if name.startswith("res") else m.subpel)(
+            f"{t}.{name}", *f, name)
+
+
+def _hyper_enc(m: FlaxToTorch, t: str):
+    """HyperEnc (DC and HEM alike): convs at 0, 2, 4, 6, 8."""
+    for i, idx in enumerate((0, 2, 4, 6, 8)):
+        m.conv(f"{t}.{idx}", t, f"c{i + 1}")
+
+
+def _ctx_hyper_enc(m: FlaxToTorch):
+    enc = "contextual_hyper_prior_encoder"
+    for i, idx in enumerate((0, 2, 4)):
+        m.conv(f"{enc}.{idx}", enc, f"c{i + 1}")
+
+
+def _temporal_prior_encoder(m: FlaxToTorch):
+    m.conv("temporal_prior_encoder.0", "temporal_prior_encoder_1")
+    m.conv("temporal_prior_encoder.2", "temporal_prior_encoder_2")
+
+
+def _hyper_dec(m: FlaxToTorch, t: str, up: str = "up"):
+    """HyperDec: Sequential keys .0 .2(subpel) .4 .6(subpel) .8; the flax
+    subpels are ``up1`` / ``up2`` (DC) or ``u1`` / ``u2`` (HEM)."""
     m.conv(f"{t}.0", t, "c1")
-    m.subpel(f"{t}.2", t, "up1")
+    m.subpel(f"{t}.2", t, f"{up}1")
     m.conv(f"{t}.4", t, "c2")
-    m.subpel(f"{t}.6", t, "up2")
+    m.subpel(f"{t}.6", t, f"{up}2")
     m.conv(f"{t}.8", t, "c3")
 
 
@@ -373,4 +400,127 @@ def evc_scalable_from_jax(params) -> dict:
         _evc_encoder(m, f"encs.{i}", f"encs_{i}")
         i += 1
     _evc_tail(m)
+    return m.finish()
+
+
+# ---- the HEM generation and the CANF-VC hybrid (port_hem.py) ----
+
+
+def _hem_enc(m: FlaxToTorch, t: str, *f):
+    """HemEncoder: Sequential 0..6 -> d1 r1 d2 r2 d3 r3 d4."""
+    for i, name in enumerate(("d1", "r1", "d2", "r2", "d3", "r3")):
+        (m.rbws if name[0] == "d" else m.resblock)(f"{t}.{i}", *f, name)
+    m.conv(f"{t}.6", *f, "d4")
+
+
+def _hem_dec(m: FlaxToTorch, t: str, *f):
+    """HemDecoder: Sequential 0..7 -> r0 u1 r1 u2 r2 u3 r3 u4."""
+    for i, name in enumerate(("r0", "u1", "r1", "u2", "r2", "u3", "r3")):
+        (m.rbu if name[0] == "u" else m.resblock)(f"{t}.{i}", *f, name)
+    m.subpel(f"{t}.7", *f, "u4")
+
+
+def _conv3(m: FlaxToTorch, t: str):
+    for i, idx in enumerate((0, 2, 4)):
+        m.conv(f"{t}.{idx}", t, f"c{i}")
+
+
+def _cbr(m: FlaxToTorch, t: str, *f):
+    """ConvBlockResidual: conv.0 / conv.2, SE Linears conv.3.fc.0 / .2,
+    up_dim."""
+    m.conv(f"{t}.conv.0", *f, "conv1")
+    m.conv(f"{t}.conv.2", *f, "conv2")
+    if m.has(*f, "se", "fc1", "kernel"):
+        m.dense(f"{t}.conv.3.fc.0", *f, "se", "fc1")
+        m.dense(f"{t}.conv.3.fc.2", *f, "se", "fc2")
+    m.conv(f"{t}.up_dim", *f, "up_dim")
+
+
+def _hem_unet(m: FlaxToTorch, t: str, *f):
+    for name in ("conv1", "conv2", "conv3"):
+        _cbr(m, f"{t}.{name}", *f, name)
+    for i in range(4):
+        m.resblock(f"{t}.context_refine.{i}", *f, f"context_refine_{i}")
+    m.subpel(f"{t}.up3", *f, "up3")
+    _cbr(m, f"{t}.up_conv3", *f, "up_conv3")
+    m.subpel(f"{t}.up2", *f, "up2")
+    _cbr(m, f"{t}.up_conv2", *f, "up_conv2")
+
+
+def _recon_gen(m: FlaxToTorch, t: str, *f):
+    m.conv(f"{t}.first_conv", *f, "first_conv")
+    _hem_unet(m, f"{t}.unet_1", *f, "unet_1")
+    _hem_unet(m, f"{t}.unet_2", *f, "unet_2")
+    m.conv(f"{t}.recon_conv", *f, "recon_conv")
+
+
+def intra_hem_from_jax(params) -> dict:
+    """IntraNoARHem flax params -> port (= reference) state_dict."""
+    m = FlaxToTorch(params)
+    _hem_enc(m, "enc", "enc")
+    _hem_dec(m, "dec", "dec")
+    _hyper_enc(m, "hyper_enc")
+    _hyper_dec(m, "hyper_dec", "u")
+    _conv3(m, "y_prior_fusion")
+    _conv3(m, "y_spatial_prior")
+    _hem_unet(m, "refine.0", "refine_unet")
+    m.conv("refine.1", "refine_conv")
+    m.bit_estimator("bit_estimator_z", "bit_estimator_z")
+    m.channel_param("q_basic", ("q_basic",))
+    m.param("q_scale", ("q_scale",))
+    return m.finish()
+
+
+def _hem_trunk(m: FlaxToTorch):
+    """What DMCHem and CANFVCDmc share (port_hem._map_dmc_trunk)."""
+    _spynet(m)
+    _hem_enc(m, "mv_encoder", "mv_encoder")
+    _hem_dec(m, "mv_decoder", "mv_decoder")
+    _hyper_enc(m, "mv_hyper_prior_encoder")
+    _hyper_dec(m, "mv_hyper_prior_decoder", "u")
+    _conv3(m, "mv_y_prior_fusion")
+    _conv3(m, "mv_y_spatial_prior")
+    m.conv("feature_adaptor_I", "feature_adaptor_I")
+    _feature_pyramid(m)
+    _ctx_hyper_enc(m)
+    _hyper_dec(m, "contextual_hyper_prior_decoder", "u")
+    _temporal_prior_encoder(m)
+    _conv3(m, "y_prior_fusion")
+    _conv3(m, "y_spatial_prior")
+    m.bit_estimator("bit_estimator_z", "bit_estimator_z")
+    m.bit_estimator("bit_estimator_z_mv", "bit_estimator_z_mv")
+    for n in ("mv_y_q_basic", "y_q_basic"):
+        m.channel_param(n, (n,))
+    for n in ("mv_y_q_scale", "y_q_scale"):
+        m.param(n, (n,))
+
+
+def dmc_hem_from_jax(params) -> dict:
+    """DMCHem flax params -> port (= reference) state_dict."""
+    m = FlaxToTorch(params)
+    _hem_trunk(m)
+    m.conv("feature_adaptor_P", "feature_adaptor_P")
+    _ctx_enc(m, "contextual_encoder", "contextual_encoder")
+    _ctx_dec(m, "contextual_decoder", "contextual_decoder")
+    _recon_gen(m, "recon_generation_net", "recon_generation_net")
+    return m.finish()
+
+
+def canf_dmc_from_jax(params) -> dict:
+    """CANFVCDmc flax params -> port (= reference) state_dict, without the
+    base class's unused ``feature_adaptor_P``."""
+    m = FlaxToTorch(params)
+    _hem_trunk(m)
+    cc = "contextual_coder"
+    for i in range(2):
+        _ctx_enc(m, f"{cc}.analysis{i}.model", cc, f"analysis_{i}")
+        _ctx_dec(m, f"{cc}.synthesis{i}.model_part1", cc, f"synthesis_dec_{i}")
+        _recon_gen(m, f"{cc}.synthesis{i}.model_part2", cc,
+                   f"synthesis_recon_{i}")
+    m.conv("DQ.conv1", "dq", "conv1")
+    for i in range(6):
+        m.conv(f"DQ.resblock.{i}.0", "dq", f"res{i}_c1")
+        m.conv(f"DQ.resblock.{i}.2", "dq", f"res{i}_c2")
+    m.conv("DQ.conv2", "dq", "conv2")
+    m.conv("DQ.conv3", "dq", "conv3")
     return m.finish()

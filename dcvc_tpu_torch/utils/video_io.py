@@ -3,10 +3,9 @@
 The port's own copy of ``dcvc_tpu/utils/video_io.py`` (parity target:
 DCVC-DC/src/utils/video_reader.py:45-161 / video_writer.py:26-111: im1.png /
 im00001.png auto-detect, 8/16-bit raw RGB, skip_frame). Frames are HWC float
-arrays in [0, 1]. PNG sources are read with ``utils/png.py`` (no Pillow,
-which the machine with the card does not have); the PNG writer imports
-Pillow when it is built, so its files stay byte-identical to the JAX
-package's.
+arrays in [0, 1]. PNG frames are read and written with ``utils/png.py`` (no
+Pillow, which the machine with the card does not have): the written files
+hold the JAX package's pixels, compressed by stdlib ``zlib``.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .png import read_png
+from .png import read_png, write_png
 
 
 class PNGReader:
@@ -47,9 +46,6 @@ class PNGReader:
 
 class PNGWriter:
     def __init__(self, dst_path: str, width: int, height: int, start_num: int = 1):
-        from PIL import Image
-
-        self._image = Image
         self.dst_path = dst_path
         self.current = start_num
         os.makedirs(dst_path, exist_ok=True)
@@ -57,8 +53,7 @@ class PNGWriter:
     def write_one_frame(self, rgb: np.ndarray):
         """HWC float [0,1]."""
         arr = np.clip(np.rint(rgb * 255.0), 0, 255).astype(np.uint8)
-        self._image.fromarray(arr).save(
-            Path(self.dst_path, f"im{self.current:05d}.png"))
+        write_png(Path(self.dst_path, f"im{self.current:05d}.png"), arr)
         self.current += 1
 
     def close(self):

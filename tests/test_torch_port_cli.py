@@ -12,6 +12,17 @@ same ``.bin`` files byte for byte and a results JSON with the same keys.
 (Chained P-frames through the same runner are
 tests/test_torch_port_runner.py's subject; a third frame here cost a
 second P-frame program in both packages and tested nothing new.)
+
+The other generations' cases build the JAX side as the JAX CLI does
+(``dcvc_tpu/runner/adapters.py``, ``run_sequence`` with the CLI's padding
+and intra period), from weights written once by the port:
+  * ``evc_SS --force_intra`` (seeded port EVC, ``convert_evc``): two
+    I-frames through ``QScaleIntraAdapter``;
+  * ``intra_hem`` + ``dmc_hem`` at full width from port ``.pth`` files,
+    which the JAX package reads with its own loader (``load_params``,
+    ``port_hem``), on a 2-frame PNG sequence padded to 64; the port CLI
+    also writes the decoded frames (``--decoded_frame_path``) with Pillow
+    blocked, and they match the JAX runner's within one code value.
 """
 
 import json
@@ -24,17 +35,26 @@ import numpy as np
 import pytest
 import torch
 
+from dcvc_tpu.models.evc import make_evc as j_make_evc
 from dcvc_tpu.models.intra_dc import IntraNoAR as JIntraNoAR
+from dcvc_tpu.models.intra_hem import IntraNoARHem as JIntraNoARHem
 from dcvc_tpu.models.runtime import DmcRuntime as JDmcRuntime
+from dcvc_tpu.models.runtime import EvcCodecRuntime as JEvcCodecRuntime
+from dcvc_tpu.models.runtime import HemVideoRuntime as JHemVideoRuntime
 from dcvc_tpu.models.runtime import IntraDcRuntime as JIntraDcRuntime
 from dcvc_tpu.models.video_dc import DMC as JDMC
+from dcvc_tpu.models.video_hem import DMCHem as JDMCHem
+from dcvc_tpu.runner import adapters as jadapters
 from dcvc_tpu.runner import video as jvideo
 from dcvc_tpu.utils import port_dc
-from dcvc_tpu.utils.checkpoint import save_params
+from dcvc_tpu.utils.checkpoint import load_params, save_params
+from dcvc_tpu_torch.models.evc import build_evc
 from dcvc_tpu_torch.models.intra_dc import build_intra_dc
+from dcvc_tpu_torch.models.intra_hem import build_intra_hem
 from dcvc_tpu_torch.models.video_dc import build_dmc
+from dcvc_tpu_torch.models.video_hem import build_dmc_hem
 from dcvc_tpu_torch.tools import test_video as cli
-from dcvc_tpu_torch.utils import color
+from dcvc_tpu_torch.utils import color, png
 
 ROOT = Path(__file__).resolve().parent.parent
 H, W, FRAMES, Q = 64, 96, 2, 32
@@ -133,9 +153,11 @@ def test_cli_refuses_what_is_not_ported(case, capsys):
             "--rate_num", "1", "--q_indexes", "0", "--force_frame_num", "1",
             "--output_path", str(d / "x.json")]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        cli.main(base + ["--i_frame_model", "evc_SS", "--force_intra"])
+        cli.main(base + ["--i_frame_model", "bmshj2018-factorized",
+                         "--force_intra"])
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        cli.main(base + ["--p_frame_model", "dmc_hem"])
+        cli.main(base + ["--i_frame_model", "intra_hem",
+                         "--p_frame_model", "dmc_tcm"])
     with pytest.raises(SystemExit, match="worker_num"):
         cli.main(base + ["--worker_num", "2"])
     with pytest.raises(SystemExit, match="padding generation"):
@@ -143,8 +165,102 @@ def test_cli_refuses_what_is_not_ported(case, capsys):
     with pytest.raises(NotImplementedError, match="item 13"):
         from dcvc_tpu_torch.utils.checkpoint import load_state_dict
 
-        load_state_dict(str(d / "i.pth"), "intra_hem")
+        load_state_dict(str(d / "i.pth"), "dmc_tcm")
     with pytest.raises(KeyError):
         from dcvc_tpu_torch.models.registry import build
 
         build("no_such_model", device="cpu")
+
+
+def _jax_run(d, cfg, tag, i_rt, p_rt, pad, intra_period, decoded=None):
+    """The JAX CLI's evaluation of one (sequence, rate): its adapters and
+    run_sequence with its padding and intra period."""
+    i_rt.update(force=True)
+    i_rt = jadapters.adapt_i_runtime(i_rt)
+    if p_rt is not None:
+        p_rt.update(force=True)
+        p_rt = jadapters.adapt_p_runtime(p_rt)
+    (spec,) = jvideo.load_dataset_config(cfg)
+    ecfg = jvideo.EvalConfig(intra_period=intra_period, frame_num=FRAMES,
+                             write_stream=True, stream_path=str(d / tag),
+                             decoded_path=decoded, pad_multiple=pad)
+    jvideo.run_sequence(i_rt, p_rt, spec, ecfg, q_index_i=Q, q_index_p=Q)
+    return [Path(d, tag, f"{spec.name}_{i}.bin").read_bytes()
+            for i in range(FRAMES)]
+
+
+def test_cli_evc_force_intra_writes_the_jax_streams(case):
+    """Queue 3 F1: EVC I-frames code through the port's video CLI."""
+    d = case["dir"]
+    tm = build_evc("SS", seed=7, device="cpu")
+    with torch.no_grad():
+        tm.q_scale.copy_(torch.tensor([1.3, 1.0, 0.8, 0.6]).view(4, 1, 1, 1))
+    torch.save(tm.state_dict(), d / "evc_ss.pth")
+    params = port_dc.convert_evc(
+        {k: v.numpy() for k, v in tm.state_dict().items()})
+    cfg = json.loads((d / "cfg.json").read_text())
+    jbins = _jax_run(d, cfg, "jax_evc",
+                     JEvcCodecRuntime(j_make_evc("SS"), params), None, 64, 1)
+    cli.main(["--device", "cpu", "--test_config", str(d / "cfg.json"),
+              "--i_frame_model", "evc_SS", "--force_intra",
+              "--model_path_i", str(d / "evc_ss.pth"), "--write_stream", "1",
+              "--rate_num", "1", "--q_indexes", str(Q), "--force_frame_num",
+              str(FRAMES), "--stream_path", str(d / "evc"), "--output_path",
+              str(d / "evc.json")])
+    assert _bins(d / "evc") == jbins
+
+
+def test_cli_hem_pair_writes_the_jax_streams_without_pillow(case,
+                                                            monkeypatch):
+    """intra_hem + dmc_hem from port .pth files that both packages load;
+    the decoded PNGs are written with Pillow blocked (Queue 3 F2)."""
+    d = case["dir"] / "hem"
+    (d / "src" / "s2").mkdir(parents=True)
+    rng = np.random.default_rng(8)
+    base = rng.random((H // 8 + 2, W // 8 + 2, 3))
+    for i in range(FRAMES):
+        img = np.kron(np.roll(base, i, axis=1), np.ones((8, 8, 1)))[:H, :W]
+        img = img + rng.normal(0, 0.05, img.shape)
+        png.write_png(d / "src" / "s2" / f"im{i + 1}.png",
+                      np.clip(np.rint(img * 255), 0, 255).astype(np.uint8))
+    cfg = {"root_path": str(d / "src"), "test_classes": {"c": {
+        "test": 1, "base_path": "", "src_type": "png",
+        "sequences": {"s2": {"width": W, "height": H, "frames": FRAMES,
+                             "gop": 32}}}}}
+    (d / "cfg.json").write_text(json.dumps(cfg))
+    ti = build_intra_hem(seed=9, device="cpu")
+    tp = build_dmc_hem(seed=10, device="cpu")
+    with torch.no_grad():
+        tp.mv_y_q_scale.copy_(torch.tensor([1.2, 1.0, 0.8, 0.6]).view(4, 1, 1, 1))
+        tp.y_q_scale.copy_(torch.tensor([1.4, 1.1, 0.8, 0.5]).view(4, 1, 1, 1))
+    torch.save(ti.state_dict(), d / "i.pth")
+    torch.save(tp.state_dict(), d / "p.pth")
+    jbins = _jax_run(
+        d, cfg, "jax",
+        JEvcCodecRuntime(JIntraNoARHem(),
+                         load_params(str(d / "i.pth"), model="intra_hem")),
+        JHemVideoRuntime(JDMCHem(),
+                         load_params(str(d / "p.pth"), model="dmc_hem")),
+        64, 32, decoded=str(d / "jax_dec"))
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    res = cli.main(["--device", "cpu", "--test_config", str(d / "cfg.json"),
+                    "--i_frame_model", "intra_hem", "--p_frame_model",
+                    "dmc_hem", "--model_path_i", str(d / "i.pth"),
+                    "--model_path_p", str(d / "p.pth"), "--write_stream", "1",
+                    "--rate_num", "1", "--q_indexes", str(Q),
+                    "--force_frame_num", str(FRAMES), "--stream_path",
+                    str(d / "port"), "--decoded_frame_path",
+                    str(d / "port_dec"), "--output_path",
+                    str(d / "port.json")])
+    assert [Path(d, "port", f"s2_{i}.bin").read_bytes()
+            for i in range(FRAMES)] == jbins
+    assert all(len(b) > 100 for b in jbins)
+    assert res["s2"]["rate_0"]["frame_num"] == FRAMES
+    for i in range(FRAMES):
+        name = f"im{i + 1:05d}.png"
+        mine = png.read_png(d / "port_dec" / "s2" / name).astype(int)
+        theirs = png.read_png(d / "jax_dec" / "s2" / name).astype(int)
+        assert mine.shape == (H, W, 3)
+        assert np.abs(mine - theirs).max() <= 1

@@ -182,6 +182,56 @@ def test_scalable_evc_roundtrip_on_card(cuda):
     assert (comp["x_hat"] - dec["x_hat"]).abs().max().item() <= 1e-5
 
 
+def test_hem_roundtrip_on_card(cuda):
+    """intra_hem + dmc_hem at narrow widths on 128x192: I recon equal, P
+    DPB gap <= 1e-4; no K1 launch with exact mc, 4 + 4 with the block mc
+    (the frame warp and three context warps, each side)."""
+    from dcvc_tpu_torch.models.intra_hem import build_intra_hem
+    from dcvc_tpu_torch.models.runtime import EvcCodecRuntime, HemVideoRuntime
+    from dcvc_tpu_torch.models.video_hem import build_dmc_hem
+    from dcvc_tpu_torch.ops.warp import RD_GATED_BLOCK_MODE
+
+    irt = EvcCodecRuntime(build_intra_hem(N=32, seed=1))
+    prt = HemVideoRuntime(build_dmc_hem(seed=2, channel_mv=16, channel_N=16,
+                                        channel_M=24))
+    irt.update()
+    prt.update()
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.rand(1, 3, 128, 192, generator=g, device=cuda)
+    comp = irt.compress(x, 0.73)
+    dec = irt.decompress(comp["bit_stream"], 128, 192, 0.73)
+    assert torch.equal(comp["x_hat"], dec["x_hat"])
+    enc_dpb = {"ref_frame": comp["x_hat"], "ref_feature": None,
+               "ref_y": None, "ref_mv_y": None}
+    dec_dpb = dict(enc_dpb, ref_frame=dec["x_hat"])
+    for mode, launches in ((None, 0), (RD_GATED_BLOCK_MODE, 8)):
+        prt.module.mc_warp_mode = mode
+        before = bw.block_warp_nchw.launches
+        c = prt.compress(torch.roll(x, 3, 3) * 3 - 1, enc_dpb, 0.9, 0.8)
+        d = prt.decompress(dec_dpb, c["bit_stream"], 128, 192, 0.9, 0.8)
+        assert bw.block_warp_nchw.launches == before + launches
+        for k, v in c["dpb"].items():
+            assert (v - d["dpb"][k]).abs().max().item() <= 1e-4, (mode, k)
+        enc_dpb, dec_dpb = c["dpb"], d["dpb"]
+
+
+def test_kernel_matches_plain_at_hem_mc_shape(cuda):
+    """K1 on one 64-channel map (channel groups), the 1080p context3 shape
+    of dmc_hem's block mc, with a smooth flow and per-pixel jitter."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    im = torch.rand(1, 64, 272, 480, generator=g, device=cuda)
+    yy = torch.linspace(0, 1, 272, device=cuda).view(1, 272, 1)
+    xx = torch.linspace(0, 1, 480, device=cuda).view(1, 1, 480)
+    flow = torch.stack([3.0 * torch.sin(4.0 * yy + xx) + 1.5,
+                        2.0 * torch.cos(3.0 * xx - yy)], 1)
+    flow = flow + 0.7 * torch.randn(1, 2, 272, 480, generator=g, device=cuda)
+    before = bw.block_warp_nchw.launches
+    out = bw.block_warp_nchw(im, flow, 4, 4, 64, 128, "median4")
+    torch.cuda.synchronize()
+    assert bw.block_warp_nchw.launches == before + 1
+    plain = bw.block_warp_plain_nchw(im, flow, 4, 4, 64, 128, "median4")
+    torch.testing.assert_close(out, plain, atol=0, rtol=0)
+
 @pytest.mark.parametrize("rows_per_step", [1, 8, 16])
 @pytest.mark.parametrize("H,Wp,C,A", [
     (720, 1408, 16, 4),    # the probe's shape: bulk copies, 7 chunks/band

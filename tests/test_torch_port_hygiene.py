@@ -83,8 +83,12 @@ def test_import_all_modules_loads_no_jax(fresh_imports):
 def test_entry_points_raise_without_cuda(monkeypatch):
     from dcvc_tpu_torch.device import resolve_device
     from dcvc_tpu_torch.models.intra_dc import IntraNoAR, build_intra_dc
-    from dcvc_tpu_torch.models.runtime import DmcRuntime, IntraDcRuntime
+    from dcvc_tpu_torch.models.intra_hem import build_intra_hem
+    from dcvc_tpu_torch.models.runtime import (DmcRuntime, HemVideoRuntime,
+                                               IntraDcRuntime)
+    from dcvc_tpu_torch.models.video_canf import build_canf
     from dcvc_tpu_torch.models.video_dc import build_dmc
+    from dcvc_tpu_torch.models.video_hem import build_dmc_hem
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -98,6 +102,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     module = build_dmc(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         DmcRuntime(module)
+    for builder in (build_intra_hem, build_dmc_hem, build_canf):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            builder()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HemVideoRuntime(build_dmc_hem(device="cpu", channel_mv=8,
+                                      channel_N=8, channel_M=8))
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -114,7 +124,8 @@ def test_registry_and_cli_raise_without_cuda(monkeypatch, tmp_path):
         registry.build("intra_dc", N=8, ch_a=8, ch_b=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         registry.build("dmc_dc")
-    for name in ("evc_LL", "evc_scalable"):
+    for name in ("evc_LL", "evc_scalable", "intra_hem", "dmc_hem",
+                 "canfvc_dmc"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             registry.build(name)
     with pytest.raises(SystemExit, match="device='cpu'"):

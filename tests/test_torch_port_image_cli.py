@@ -9,7 +9,8 @@ either file, must write the ``.bin`` files that the JAX
 ``EvcCodecRuntime`` writes with ``encode_i_ushort_q`` at the CLI's q
 values, byte for byte, and a results JSON with the JAX CLI's nesting and
 keys. The ``intra_dc`` branch must write what the port's
-``IntraDcRuntime`` and ``encode_i`` write.
+``IntraDcRuntime`` and ``encode_i`` write. (The ``intra_hem`` branch is
+tests/test_torch_port_hem.py's, with these helpers.)
 """
 
 import json
@@ -45,17 +46,22 @@ def _two_torch_threads():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def case(tmp_path_factory):
-    d = tmp_path_factory.mktemp("image_cli")
-    (d / "imgs").mkdir()
+def _write_images(folder):
+    """The two seeded test PNGs (SIZES), written with Pillow."""
+    folder.mkdir()
     rng = np.random.default_rng(12)
     for name, (h, w) in SIZES.items():
         base = rng.random((h // 4 + 1, w // 4 + 1, 3))
         img = np.kron(base, np.ones((4, 4, 1)))[:h, :w]
         img = img + rng.normal(0, 0.05, img.shape)
         Image.fromarray(np.clip(img * 255, 0, 255).astype(np.uint8)).save(
-            d / "imgs" / name)
+            folder / name)
+
+
+@pytest.fixture(scope="module")
+def case(tmp_path_factory):
+    d = tmp_path_factory.mktemp("image_cli")
+    _write_images(d / "imgs")
     tm = build_evc("SS", seed=13, device="cpu")
     with torch.no_grad():
         tm.q_scale.copy_(torch.tensor([1.6, 1.2, 0.9, 0.7]).view(4, 1, 1, 1))
@@ -90,10 +96,10 @@ def _check_schema(res, rates, extra=frozenset()):
             assert all(np.isfinite(v) for v in fr.values())
 
 
-def _jax_bins(d, params, rates):
-    """What the JAX CLI's EVC write-stream branch writes
+def _jax_bins(d, params, rates, module=None):
+    """What the JAX CLI's EVC / HEM write-stream branch writes
     (tools/test_image.py), through its runtime and container."""
-    rt = JEvcCodecRuntime(j_make_evc("SS"), params)
+    rt = JEvcCodecRuntime(module or j_make_evc("SS"), params)
     rt.update(force=True)
     anchors = np.asarray(params["params"]["q_scale"]).reshape(-1)
     q_scales = np.exp(np.linspace(np.log(anchors[0]), np.log(anchors[-1]),
@@ -154,7 +160,7 @@ def test_intra_dc_cli_writes_the_port_runtimes_bins(case):
             (d / "dc_ref.bin").read_bytes()
 
 
-@pytest.mark.parametrize("model", ["intra_hem", "mbt2018"])
+@pytest.mark.parametrize("model", ["bmshj2018-factorized", "mbt2018"])
 def test_unported_models_point_at_the_roadmap(case, model):
     d, _ = case
     with pytest.raises(NotImplementedError, match="ROADMAP"):
