@@ -58,12 +58,11 @@ no result line):
      content at 1920x1080 edge-padded to 1088, through the HEM containers
      (ushort q for I, rounded mv / y q for P); aligned_enc off, then on.
      Symbols equal, I recon gap 0.0, DPB gap <= 1e-4; encode / decode ms
-     (median of 3 after a warm-up), bytes, peak memory, the I-frame's 3x3
-     convolutions at the [1, 192, 136, 240] input (the shape cuDNN runs as
-     an FFT) with one timed alone, and one profiled P-frame (device ms,
-     busy share, top kernels). mc warps exact;
+     (median of 3 after a warm-up), bytes, peak memory and one profiled
+     P-frame (device ms, busy share, top kernels). mc warps exact;
  14. one more dmc_hem P-frame with mc_warp_mode = the block warp: K1
-     launches 4 times per compress and 4 per decompress, symbols exact;
+     launches 4 times per compress and 4 per decompress, symbols exact
+     (encode / decode ms: median of 3 after that call);
      K1 against its plain version (atol 0) at the four mc shapes
      ([1, 3, 1088, 1920] and [1, 64, 1088 / 544 / 272, 1920 / 960 / 480])
      on the tensors compress warped, and K1's time at the 64-channel
@@ -1133,39 +1132,12 @@ def _hem_profile(fn) -> dict:
                      for ms, n, k in rows[:5]]}
 
 
-# the convolution input cuDNN's deterministic heuristic runs as an FFT
-# with ~33k gemvx launches a call (evc_LL, PERF.md section 5)
-FFT_SHAPE = (1, 192, 136, 240)
-
-
-def _fft_shape_convs(module, fn) -> list:
-    """The stride-1 3x3 nn.Conv2d modules that ``fn()`` calls on an input
-    of FFT_SHAPE, once per call."""
-    import torch.nn as nn
-
-    calls = []
-
-    def hook(conv, inputs, out):
-        if (tuple(inputs[0].shape) == FFT_SHAPE and conv.kernel_size == (3, 3)
-                and conv.stride == (1, 1)):
-            calls.append(conv)
-
-    handles = [m.register_forward_hook(hook) for m in module.modules()
-               if isinstance(m, nn.Conv2d)]
-    try:
-        fn()
-    finally:
-        for h in handles:
-            h.remove()
-    return calls
-
-
 def hem_phase(results: dict):
     """intra_hem (N=192) + dmc_hem (64 / 64 / 96) at 1080p padded to 1088:
     one I-frame (a warm-up + 3) and two chained P-frames through the
     runtimes, with aligned_enc off (the last P-frame a warm-up + 3) and
-    then on; the I-frame's convolutions at FFT_SHAPE, and one more P-frame
-    under torch.profiler. mc warps exact: no kernel launches."""
+    then on, and one more P-frame under torch.profiler. mc warps exact: no
+    kernel launches."""
     import torch
 
     from dcvc_tpu_torch.models.intra_hem import build_intra_hem
@@ -1187,24 +1159,6 @@ def hem_phase(results: dict):
     i_runs = [_hem_i_frame(irt, taps["i"], xs[0]) for _ in range(4)]
     _, comp_i, dec_i = i_runs[-1]
     i_runs = [r[0] for r in i_runs]
-    # where the I-frame's time goes, without a profiler (the FFT's ~100k
-    # kernel events take ~30 s to trace): the stride-1 3x3 convolutions at
-    # FFT_SHAPE per encode / decode, and one of them timed alone
-    q_i, _ = stream.get_rounded_q(HEM_I_Q)
-    fft = {"encode": _fft_shape_convs(irt.module, lambda: irt.compress(
-               xs[0], q_i)),
-           "decode": _fft_shape_convs(irt.module, lambda: irt.decompress(
-               comp_i["bit_stream"], xs[0].shape[2], xs[0].shape[3], q_i))}
-    taps["i"].enc, taps["i"].dec = [], []
-    if not fft["decode"]:
-        raise AssertionError(f"intra_hem decode: no 3x3 conv on {FFT_SHAPE}")
-    conv = fft["decode"][0]
-    probe = torch.rand(FFT_SHAPE, device=conv.weight.device)
-    with torch.no_grad():
-        fft_ms = _time_ms(lambda: conv(probe), 3, 1)
-    i_fft = {"shape": list(FFT_SHAPE), "conv_ms": fft_ms,
-             **{f"calls_{k}": len(v) for k, v in fft.items()}}
-    del probe
     dpb0_enc = {"ref_frame": comp_i["x_hat"], "ref_feature": None,
                 "ref_y": None, "ref_mv_y": None}
     dpb0_dec = dict(dpb0_enc, ref_frame=dec_i["x_hat"])
@@ -1247,7 +1201,6 @@ def hem_phase(results: dict):
            "aligned_streams_identical": streams[True] == streams[False],
            "symbols_equal": True, "peak_mem_gib": peak / 2 ** 30,
            "launches": counts,
-           "i_frame_fft_convs": i_fft,
            "profile_p_frame": profile}
     print(f"hem {json.dumps(row)}", flush=True)
     results["hem"] = row
@@ -1260,9 +1213,10 @@ K1_HEM_MODE = "block:4,4,64,128,median4"   # ops/warp.py RD_GATED_BLOCK_MODE
 def hem_block_phase(results: dict):
     """One more dmc_hem P-frame with mc_warp_mode = the block warp: K1
     launches 4 times per compress and 4 per decompress (the frame warp and
-    the three context warps), symbols exact. Then K1 against its plain
-    version (atol 0) at the four mc shapes on the inputs that compress
-    warped, and K1's time at the 64-channel full-resolution one."""
+    the three context warps), symbols exact; that call is the warm-up of
+    three timed ones (median). Then K1 against its plain version (atol 0)
+    at the four mc shapes on the inputs that compress warped, and K1's
+    time at the 64-channel full-resolution one."""
     import torch
 
     from dcvc_tpu_torch.ops import block_warp as bw
@@ -1291,6 +1245,8 @@ def hem_block_phase(results: dict):
                              mv_q, y_q)
         dec_ms = _sync_ms(t)
         counts = _counts()
+        reps = [_hem_p_frame(prt, tap, x, de, dd, "dmc_hem block mc")[0]
+                for _ in range(3)]
     finally:
         m.mc_warp_mode = None
         for h in hooks:
@@ -1305,7 +1261,9 @@ def hem_block_phase(results: dict):
         raise AssertionError(f"hem block mc: K1 launches {per_side}, K2 "
                              f"{counts['band_copy']}; expected 4 + 4 and 0")
     row = {"bytes": len(comp["bit_stream"]), "encode_ms": enc_ms,
-           "decode_ms": dec_ms, "max_dpb_gap": gap, "symbols_equal": True}
+           "decode_ms": dec_ms, "max_dpb_gap": gap, "symbols_equal": True,
+           "encode_ms_median3": sorted(r["encode_ms"] for r in reps)[1],
+           "decode_ms_median3": sorted(r["decode_ms"] for r in reps)[1]}
     mv = seen["mv"]
     mv2 = bilinear_down2(mv) / 2
     mv3 = bilinear_down2(mv2) / 2

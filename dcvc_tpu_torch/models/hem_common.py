@@ -92,11 +92,11 @@ class SELayer(nn.Module):
 
 
 class ConvBlockResidual(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, se_layer: bool = True):
+    def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.conv = nn.Sequential(
             conv(in_ch, out_ch, 3), nn.LeakyReLU(0.01), conv(out_ch, out_ch, 3),
-            SELayer(out_ch) if se_layer else nn.Identity())
+            SELayer(out_ch))
         self.up_dim = conv(in_ch, out_ch, 1)
 
     def forward(self, x):

@@ -430,9 +430,8 @@ def _cbr(m: FlaxToTorch, t: str, *f):
     up_dim."""
     m.conv(f"{t}.conv.0", *f, "conv1")
     m.conv(f"{t}.conv.2", *f, "conv2")
-    if m.has(*f, "se", "fc1", "kernel"):
-        m.dense(f"{t}.conv.3.fc.0", *f, "se", "fc1")
-        m.dense(f"{t}.conv.3.fc.2", *f, "se", "fc2")
+    m.dense(f"{t}.conv.3.fc.0", *f, "se", "fc1")
+    m.dense(f"{t}.conv.3.fc.2", *f, "se", "fc2")
     m.conv(f"{t}.up_dim", *f, "up_dim")
 
 

@@ -5,12 +5,14 @@ CANF has no golden pin. Seeded *port* weights at narrow widths (mv / N /
 M = 16 / 16 / 24; the DQ post-filter and the ANF ladder at their fixed
 sizes) are carried to JAX with ``dcvc_tpu/utils/port_hem.py``
 (``convert_canf_dmc``), with no JAX model init. The port's stream must be
-byte-identical to the JAX ``HemVideoRuntime``'s on those weights, and each
-package decodes the other's stream.
+byte-identical to the JAX ``HemVideoRuntime``'s on those weights. The port
+decodes the JAX stream to within 1e-5 of the JAX encoder's DPB; the JAX
+runtime decoding those same bytes is the JAX package's own round trip
+(tests/test_canf.py), so it is not compiled again here.
 
 Tolerances (f32; convolutions in another summation order): forward bpp /
-mse terms atol 2e-5 (rtol 1e-5), DPBs atol 2e-5, cross-package decoded
-DPBs atol 1e-5; streams identical.
+mse terms atol 2e-5 (rtol 1e-5), DPBs atol 2e-5, a decoded DPB against an
+encoder's atol 1e-5; streams identical.
 """
 
 import jax
@@ -119,12 +121,11 @@ def test_canf_stream_equals_jax_runtime_and_decodes_across(canf):
 
     dec = rt.decompress(dpb, jcomp["bit_stream"], H, W, MV_Q, Y_Q)
     assert dec["dpb"]["ref_feature"] is None
-    jdec = jrt.decompress(jdpb, comp["bit_stream"], H, W, MV_Q, Y_Q)
     for k in DPB_KEYS:
         np.testing.assert_allclose(dec["dpb"][k].numpy(),
                                    comp["dpb"][k].numpy(), atol=1e-5,
                                    err_msg=k)
-        np.testing.assert_allclose(np.asarray(jdec["dpb"][k]),
+        np.testing.assert_allclose(np.asarray(jcomp["dpb"][k]),
                                    _nhwc(dec["dpb"][k]), atol=1e-5, err_msg=k)
 
 

@@ -20,13 +20,19 @@ and intra period), from weights written once by the port:
     I-frames through ``QScaleIntraAdapter``;
   * ``intra_hem`` + ``dmc_hem`` at full width from port ``.pth`` files,
     which the JAX package reads with its own loader (``load_params``,
-    ``port_hem``), on a 2-frame PNG sequence padded to 64; the port CLI
-    also writes the decoded frames (``--decoded_frame_path``) with Pillow
-    blocked, and they match the JAX runner's within one code value.
+    ``port_hem``), on a 2-frame PNG sequence padded to 64. Each runner
+    decodes the streams it wrote, so with identical bytes each package
+    decodes the other's; the port CLI writes its decoded frames
+    (``--decoded_frame_path``) with Pillow blocked, and they match the
+    JAX runner's within one code value. The image CLI's ``intra_hem``
+    branch codes the sequence's first frame at the two rates its q_scale
+    anchors give, on the same JAX ``EvcCodecRuntime`` (one JAX program at
+    that shape for both cases).
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -53,6 +59,7 @@ from dcvc_tpu_torch.models.intra_dc import build_intra_dc
 from dcvc_tpu_torch.models.intra_hem import build_intra_hem
 from dcvc_tpu_torch.models.video_dc import build_dmc
 from dcvc_tpu_torch.models.video_hem import build_dmc_hem
+from dcvc_tpu_torch.tools import test_image as image_cli
 from dcvc_tpu_torch.tools import test_video as cli
 from dcvc_tpu_torch.utils import color, png
 
@@ -173,12 +180,11 @@ def test_cli_refuses_what_is_not_ported(case, capsys):
 
 
 def _jax_run(d, cfg, tag, i_rt, p_rt, pad, intra_period, decoded=None):
-    """The JAX CLI's evaluation of one (sequence, rate): its adapters and
-    run_sequence with its padding and intra period."""
-    i_rt.update(force=True)
+    """The JAX CLI's evaluation of one (sequence, rate) on runtimes whose
+    tables are built: its adapters and run_sequence with its padding and
+    intra period."""
     i_rt = jadapters.adapt_i_runtime(i_rt)
     if p_rt is not None:
-        p_rt.update(force=True)
         p_rt = jadapters.adapt_p_runtime(p_rt)
     (spec,) = jvideo.load_dataset_config(cfg)
     ecfg = jvideo.EvalConfig(intra_period=intra_period, frame_num=FRAMES,
@@ -199,8 +205,9 @@ def test_cli_evc_force_intra_writes_the_jax_streams(case):
     params = port_dc.convert_evc(
         {k: v.numpy() for k, v in tm.state_dict().items()})
     cfg = json.loads((d / "cfg.json").read_text())
-    jbins = _jax_run(d, cfg, "jax_evc",
-                     JEvcCodecRuntime(j_make_evc("SS"), params), None, 64, 1)
+    rt = JEvcCodecRuntime(j_make_evc("SS"), params)
+    rt.update(force=True)
+    jbins = _jax_run(d, cfg, "jax_evc", rt, None, 64, 1)
     cli.main(["--device", "cpu", "--test_config", str(d / "cfg.json"),
               "--i_frame_model", "evc_SS", "--force_intra",
               "--model_path_i", str(d / "evc_ss.pth"), "--write_stream", "1",
@@ -210,11 +217,12 @@ def test_cli_evc_force_intra_writes_the_jax_streams(case):
     assert _bins(d / "evc") == jbins
 
 
-def test_cli_hem_pair_writes_the_jax_streams_without_pillow(case,
-                                                            monkeypatch):
-    """intra_hem + dmc_hem from port .pth files that both packages load;
-    the decoded PNGs are written with Pillow blocked (Queue 3 F2)."""
-    d = case["dir"] / "hem"
+@pytest.fixture(scope="module")
+def hem(tmp_path_factory):
+    """A 2-frame PNG sequence, full-width intra_hem + dmc_hem port weights
+    saved as ``.pth``, and the JAX runtimes the JAX CLI builds from those
+    files, tables built."""
+    d = tmp_path_factory.mktemp("hem")
     (d / "src" / "s2").mkdir(parents=True)
     rng = np.random.default_rng(8)
     base = rng.random((H // 8 + 2, W // 8 + 2, 3))
@@ -235,13 +243,21 @@ def test_cli_hem_pair_writes_the_jax_streams_without_pillow(case,
         tp.y_q_scale.copy_(torch.tensor([1.4, 1.1, 0.8, 0.5]).view(4, 1, 1, 1))
     torch.save(ti.state_dict(), d / "i.pth")
     torch.save(tp.state_dict(), d / "p.pth")
-    jbins = _jax_run(
-        d, cfg, "jax",
-        JEvcCodecRuntime(JIntraNoARHem(),
-                         load_params(str(d / "i.pth"), model="intra_hem")),
-        JHemVideoRuntime(JDMCHem(),
-                         load_params(str(d / "p.pth"), model="dmc_hem")),
-        64, 32, decoded=str(d / "jax_dec"))
+    irt = JEvcCodecRuntime(JIntraNoARHem(),
+                           load_params(str(d / "i.pth"), model="intra_hem"))
+    prt = JHemVideoRuntime(JDMCHem(),
+                           load_params(str(d / "p.pth"), model="dmc_hem"))
+    irt.update(force=True)
+    prt.update(force=True)
+    return d, cfg, irt, prt
+
+
+def test_cli_hem_pair_writes_the_jax_streams_without_pillow(hem, monkeypatch):
+    """intra_hem + dmc_hem from port .pth files that both packages load;
+    the decoded PNGs are written with Pillow blocked (Queue 3 F2)."""
+    d, cfg, irt, prt = hem
+    jbins = _jax_run(d, cfg, "jax", irt, prt, 64, 32,
+                     decoded=str(d / "jax_dec"))
 
     monkeypatch.setitem(sys.modules, "PIL", None)
     monkeypatch.setitem(sys.modules, "PIL.Image", None)
@@ -264,3 +280,24 @@ def test_cli_hem_pair_writes_the_jax_streams_without_pillow(case,
         theirs = png.read_png(d / "jax_dec" / "s2" / name).astype(int)
         assert mine.shape == (H, W, 3)
         assert np.abs(mine - theirs).max() <= 1
+
+
+def test_image_cli_intra_hem_writes_the_jax_runtimes_bins(hem):
+    """The image CLI's ``intra_hem`` branch (a full-width port ``.pth``)
+    writes what the JAX ``EvcCodecRuntime`` writes at the q_scale anchors'
+    rates (the JAX image CLI's branch)."""
+    from test_torch_port_image_cli import _bins, _jax_bins
+
+    d, _, irt, _ = hem
+    (d / "imgs").mkdir()
+    shutil.copy(d / "src" / "s2" / "im1.png", d / "imgs" / "f.png")
+    sizes = {"f.png": (H, W)}
+    image_cli.main(["--img_folder", str(d / "imgs"), "--device", "cpu",
+                    "--model", "intra_hem", "--model_path", str(d / "i.pth"),
+                    "--rate_num", "2", "--write_stream", "1", "--stream_path",
+                    str(d / "image"), "--output_path",
+                    str(d / "image.json"), "--verbose", "0"])
+    bins = _bins(d, "image", 2, sizes)
+    # the anchors [1.541 .. 0.5] give two rates
+    assert bins["f.png_0"] != bins["f.png_1"]
+    assert bins == _jax_bins(d, irt, 2, sizes)

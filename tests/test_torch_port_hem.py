@@ -1,20 +1,21 @@
-"""Port HEM generation (IntraNoARHem, DMCHem, HemVideoRuntime, the
-image CLI's ``intra_hem`` branch) against the JAX package, on the CPU.
+"""Port HEM generation (IntraNoARHem, DMCHem, HemVideoRuntime) against
+the JAX package, on the CPU.
 
 The two models run at the golden pins' widths (IntraNoARHem N = 32;
 DMCHem mv / N / M = 16 / 16 / 24) with the JAX ``PRNGKey(0)`` init those
 pins were coded with (tests/test_golden_bins.py:_case_hem_intra /
-_case_hem_p): each init runs once, under ``jax.jit``, in a module fixture
-that also holds the JAX runtime, and reaches the port through
-``intra_hem_from_jax`` / ``dmc_hem_from_jax``. The image CLI case carries
-seeded port weights at full width (N = 192) to JAX with
-``port_hem.convert_intra_hem``. Blocks and converters are
-tests/test_torch_port_hem_blocks.py's. (This file holds the costly JAX
-compiles in few tests: xdist's ``--dist loadfile`` queues files with more
-tests first, and fewer than 6 queue it behind the two longest JAX files.)
+_case_hem_p): each init runs once, under ``jax.jit``, in a module fixture,
+and reaches the port through ``intra_hem_from_jax`` / ``dmc_hem_from_jax``.
+The port writes each pin byte for byte and decodes it (a JAX stream); the
+JAX package decodes those same bytes in tests/test_golden_bins.py, so the
+pins need no JAX runtime here. Recons across packages are held by the
+forward cases below and, at full width through both CLIs (each decodes
+the other's identical streams), by tests/test_torch_port_cli.py, which
+also holds the image CLI's ``intra_hem`` branch. Blocks and converters
+are tests/test_torch_port_hem_blocks.py's.
 
-Tolerances (f32; convolutions in another summation order): blocks and the
-models' recons / bpp / DPBs atol 2e-5, cross-package decoded DPBs atol
+Tolerances (f32; convolutions in another summation order): the models'
+recons / bpp / DPBs atol 2e-5, a decoded DPB against the encoder's atol
 1e-5; the pins' streams (and so every symbol and scale index) must be
 identical.
 """
@@ -31,15 +32,11 @@ import pytest
 import torch
 
 from dcvc_tpu.models.intra_hem import IntraNoARHem as JIntraNoARHem
-from dcvc_tpu.models.runtime import EvcCodecRuntime as JEvcCodecRuntime
-from dcvc_tpu.models.runtime import HemVideoRuntime as JHemVideoRuntime
 from dcvc_tpu.models.video_hem import DMCHem as JDMCHem
-from dcvc_tpu.utils import port_hem
-from dcvc_tpu_torch.models.intra_hem import IntraNoARHem, build_intra_hem
+from dcvc_tpu_torch.models.intra_hem import IntraNoARHem
 from dcvc_tpu_torch.models.runtime import EvcCodecRuntime, HemVideoRuntime
 from dcvc_tpu_torch.models.video_hem import DMCHem
 from dcvc_tpu_torch.ops.warp import RD_GATED_BLOCK_MODE
-from dcvc_tpu_torch.tools import test_image as image_cli
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.convert import dmc_hem_from_jax, intra_hem_from_jax
 
@@ -81,15 +78,13 @@ def intra():
     params = jax.tree_util.tree_map(np.asarray, params)
     tm = IntraNoARHem(32)
     tm.load_state_dict(intra_hem_from_jax(params), strict=True)
-    jrt = JEvcCodecRuntime(jm, params)
-    jrt.update(force=True)
-    return tm.eval(), jm, params, jrt
+    return tm.eval(), jm, params
 
 
 def test_intra_hem_forward_matches_jax(intra):
     """Estimated-bits forward; the compress planes are the ``hem_intra``
     pin's (byte for byte, below)."""
-    tm, jm, params, _ = intra
+    tm, jm, params = intra
     torch.testing.assert_close(tm.q_scale.view(-1),
                                torch.tensor([1.541, 1.083, 0.729, 0.500]))
     x = (np.random.default_rng(25).random((1, 64, 128, 3)) * 6 - 2.5
@@ -105,37 +100,12 @@ def test_intra_hem_forward_matches_jax(intra):
                                    atol=2e-5, err_msg=k)
 
 
-def test_image_cli_intra_hem_writes_the_jax_runtimes_bins(tmp_path):
-    """The image CLI's ``intra_hem`` branch at full width (a port ``.pth``)
-    writes what the JAX ``EvcCodecRuntime`` writes at the q_scale anchors'
-    rates (the JAX image CLI's branch), on tests/test_torch_port_image_cli.py's
-    two PNGs."""
-    from test_torch_port_image_cli import _bins, _jax_bins, _write_images
-
-    _write_images(tmp_path / "imgs")
-    tm = build_intra_hem(seed=14, device="cpu")
-    torch.save(tm.state_dict(), tmp_path / "intra_hem.pth")
-    image_cli.main(["--img_folder", str(tmp_path / "imgs"), "--device", "cpu",
-                    "--model", "intra_hem", "--model_path",
-                    str(tmp_path / "intra_hem.pth"), "--rate_num", "2",
-                    "--write_stream", "1", "--stream_path",
-                    str(tmp_path / "hem"), "--output_path",
-                    str(tmp_path / "hem.json"), "--verbose", "0"])
-    bins = _bins(tmp_path, "hem", 2)
-    # the anchors [1.541 .. 0.5] give two rates
-    assert bins["a.png_0"] != bins["a.png_1"]
-    params = port_hem.convert_intra_hem(
-        {k: v.numpy() for k, v in tm.state_dict().items()})
-    assert bins == _jax_bins(tmp_path, params, 2, JIntraNoARHem())
-
-
 def test_golden_hem_intra_pin_and_cross_package_streams(intra):
-    """The port writes the committed ``hem_intra`` pin byte for byte; it
-    decodes the pin (a JAX stream) to its own encoder recon, and the JAX
-    runtime decodes the port's stream to within 1e-5 of it."""
+    """The port writes the committed ``hem_intra`` pin byte for byte and
+    decodes the pin (a JAX stream) to its own encoder recon."""
     from test_golden_bins import _img
 
-    tm, _, _, jrt = intra
+    tm, _, _ = intra
     rt = EvcCodecRuntime(tm, device="cpu")
     rt.update()
     q, q_index = stream.get_rounded_q(0.73)
@@ -148,9 +118,6 @@ def test_golden_hem_intra_pin_and_cross_package_streams(intra):
     h, w, qi, s = stream.unpack_i_ushort_q(golden)
     dec = rt.decompress(s, h, w, qi / 100)
     np.testing.assert_array_equal(dec["x_hat"].numpy(), comp["x_hat"].numpy())
-    jdec = jrt.decompress(comp["bit_stream"], 128, 128, jnp.asarray(qi / 100))
-    np.testing.assert_allclose(np.asarray(jdec["x_hat"]), _nhwc(dec["x_hat"]),
-                               atol=1e-5)
 
 
 # ---- DMCHem, the hem_p pin's init ----
@@ -167,9 +134,7 @@ def dmc():
     params = jax.tree_util.tree_map(np.asarray, params)
     tm = DMCHem(**P_WIDTHS)
     tm.load_state_dict(dmc_hem_from_jax(params), strict=True)
-    jrt = JHemVideoRuntime(jm, params)
-    jrt.update(force=True)
-    return tm.eval(), jm, params, jrt
+    return tm.eval(), jm, params
 
 
 def _dpb_nchw(dpb):
@@ -178,19 +143,17 @@ def _dpb_nchw(dpb):
 
 def test_golden_hem_p_pin_and_cross_package_streams(dmc):
     """The port writes the committed ``hem_p`` pin byte for byte (directly
-    and with the decoder-aligned encode); it decodes the pin to its own
-    encoder DPB, and the JAX runtime decodes the port's stream to within
-    1e-5 of the port's decoded DPB."""
+    and with the decoder-aligned encode) and decodes the pin (a JAX
+    stream) to its own encoder DPB."""
     from test_golden_bins import _img
 
-    tm, _, _, jrt = dmc
+    tm, _, _ = dmc
     rt = HemVideoRuntime(tm, device="cpu")
     rt.update()
     ref = _img(192, 192, seed=13, gain=3.0)
     x = _nchw(_img(192, 192, seed=113, gain=3.0))
-    jdpb = {"ref_frame": ref, "ref_feature": None, "ref_y": None,
-            "ref_mv_y": None}
-    dpb = _dpb_nchw(jdpb)
+    dpb = _dpb_nchw({"ref_frame": ref, "ref_feature": None, "ref_y": None,
+                     "ref_mv_y": None})
     mv_q, mv_i = stream.get_rounded_q(0.9)
     y_q, y_i = stream.get_rounded_q(0.8)
     comp = rt.compress(x, dpb, mv_q, y_q)
@@ -208,11 +171,6 @@ def test_golden_hem_p_pin_and_cross_package_streams(dmc):
         np.testing.assert_allclose(dec["dpb"][k].numpy(),
                                    comp["dpb"][k].numpy(), atol=1e-5,
                                    err_msg=k)
-    jdec = jrt.decompress(jdpb, comp["bit_stream"], 192, 192, mv_i / 100,
-                          y_i / 100)
-    for k in DPB_KEYS:
-        np.testing.assert_allclose(np.asarray(jdec["dpb"][k]),
-                                   _nhwc(dec["dpb"][k]), atol=1e-5, err_msg=k)
 
 
 def test_dmc_hem_block_mc_forward_matches_jax(dmc):
@@ -223,7 +181,7 @@ def test_dmc_hem_block_mc_forward_matches_jax(dmc):
     I-frame are the ``hem_p`` pin's (byte for byte, above)."""
     from test_golden_bins import _img
 
-    tm, _, params, _ = dmc
+    tm, _, params = dmc
     jm = JDMCHem(**P_WIDTHS, mc_warp_mode=RD_GATED_BLOCK_MODE)
     rng = np.random.default_rng(27)
     H, W = 64, 128

@@ -10,7 +10,8 @@ either file, must write the ``.bin`` files that the JAX
 values, byte for byte, and a results JSON with the JAX CLI's nesting and
 keys. The ``intra_dc`` branch must write what the port's
 ``IntraDcRuntime`` and ``encode_i`` write. (The ``intra_hem`` branch is
-tests/test_torch_port_hem.py's, with these helpers.)
+tests/test_torch_port_cli.py's, with these helpers, on the JAX runtime
+that its video case builds.)
 """
 
 import json
@@ -81,9 +82,9 @@ def _run(d, tag, *extra):
     return res
 
 
-def _bins(d, tag, rates):
+def _bins(d, tag, rates, sizes=SIZES):
     return {f"{n}_{r}": (d / tag / f"{n}_{r}.bin").read_bytes()
-            for n in SIZES for r in range(rates)}
+            for n in sizes for r in range(rates)}
 
 
 def _check_schema(res, rates, extra=frozenset()):
@@ -96,16 +97,15 @@ def _check_schema(res, rates, extra=frozenset()):
             assert all(np.isfinite(v) for v in fr.values())
 
 
-def _jax_bins(d, params, rates, module=None):
+def _jax_bins(d, rt, rates, sizes=SIZES):
     """What the JAX CLI's EVC / HEM write-stream branch writes
-    (tools/test_image.py), through its runtime and container."""
-    rt = JEvcCodecRuntime(module or j_make_evc("SS"), params)
-    rt.update(force=True)
-    anchors = np.asarray(params["params"]["q_scale"]).reshape(-1)
+    (tools/test_image.py) for the PNGs ``sizes`` names in ``d / "imgs"``,
+    through its runtime ``rt`` (tables built) and container."""
+    anchors = np.asarray(rt.params["params"]["q_scale"]).reshape(-1)
     q_scales = np.exp(np.linspace(np.log(anchors[0]), np.log(anchors[-1]),
                                   rates))
     out = {}
-    for name, (h, w) in SIZES.items():
+    for name, (h, w) in sizes.items():
         img = np.asarray(Image.open(d / "imgs" / name).convert("RGB"),
                          dtype=np.float32) / 255.0
         l, r, t, b = get_padding_size(h, w, 64)
@@ -131,7 +131,9 @@ def test_evc_cli_writes_the_jax_runtimes_bins(case):
     bins = _bins(d, "pth", 2)
     assert bins == _bins(d, "npz", 2)
     assert bins["a.png_0"] != bins["a.png_1"]
-    assert bins == _jax_bins(d, params, 2)
+    rt = JEvcCodecRuntime(j_make_evc("SS"), params)
+    rt.update(force=True)
+    assert bins == _jax_bins(d, rt, 2)
 
 
 def test_evc_cli_estimated_bits_and_single_rate(case):
