@@ -72,14 +72,32 @@ no result line):
      dmc_hem writing streams and decoded PNGs (utils/png.write_png; read
      back, they must equal a fresh runtime pair's re-decode of the .bin
      files), then evc_SS with --force_intra;
- 17. one JSON line per kernel, then the result line.
+ 17. the five CompressAI zoo models at full width on one seeded 1080p
+     image padded to 1088 through IntraZooRuntime (a warm-up round trip,
+     then a timed one): symbols equal, recon gap 0.0 (limit 1e-5), bytes,
+     encode / decode ms, peak memory, and for mbt2018 / cheng2020-anchor
+     the host wavefront AR loop's ms apart from the rest (the image CLI
+     phase, 12, also codes the two PNGs with mbt2018);
+ 18. mbt2018-mean I + dmc_tcm (128 / 64 / 96) two chained P-frames of the
+     panning content at 1080p padded to 1088, aligned_enc off (P2 a
+     warm-up + 3) then on; DPB gap <= 1e-4; mc exact, no kernel;
+ 19. one more dmc_tcm P-frame with the block mc: K1 4 + 4, then K1
+     against its plain version (atol 0) at the four mc shapes;
+ 20. cheng2020-anchor I + dcvc_gen1 (128 / 64 / 96) two chained P-frames
+     (P2 a warm-up + 3), mc exact, no kernel: per-substream host ms (mv_z
+     and z rANS, mv_y and y wavefront AR loops); then one block-mc
+     P-frame: K1 1 + 1, K1 vs plain at [1, 64, 1088, 1920], timed;
+ 21. the video CLI on the 1080p PNG sequence: mbt2018-mean + dmc_tcm
+     writing streams and decoded PNGs equal to a fresh re-decode;
+ 22. one JSON line per kernel, then the result line.
 
-Every path (7 to 16) runs with the kernels' launch counts set to 0 just
-before it and read just after. Paths 7, 8, 9 and 14 fail if they launched
-none of their kernels (14: not exactly 4 + 4); paths 10-13, 15 and 16 have
-no kernel (convolutions, elementwise ops and host rANS only) and fail if
-either count is not 0. Launches made to compare a kernel with its plain
-version are not counted.
+Every path (7 to 21) runs with the kernels' launch counts set to 0 just
+before it and read just after. Paths 7, 8, 9, 14, 19 and 20's block-mc
+frame fail if they launched none of their kernels (14 and 19: not exactly
+4 + 4; 20: not 1 + 1); paths 10-13, 15-18, 20's exact frames and 21 have
+no kernel (convolutions, elementwise ops, host rANS and host AR loops
+only) and fail if either count is not 0. Launches made to compare a
+kernel with its plain version are not counted.
 
 Imports nothing of JAX. Needs one card; without one it exits non-zero.
 """
@@ -378,45 +396,37 @@ def _device_rows(averages) -> list:
 
 
 class _SymbolTap:
-    """Records the symbol planes a runtime hands to rANS and the ones a
-    runtime (``dec_rt``, by default the same) gets back."""
+    """Records the symbols a runtime's rANS coder encodes and the ones a
+    runtime's coder (``dec_rt``'s, by default the same) decodes, every
+    substream in order; they are compared concatenated (the wavefront AR
+    decode asks for one wavefront at a time)."""
 
     def __init__(self, rt, dec_rt=None):
-        dec_rt = dec_rt or rt
+        import numpy as np
+
+        enc_coder = rt.entropy_coder
+        dec_coder = (dec_rt or rt).entropy_coder
         self.enc, self.dec = [], []
-        enc_y, dec_y = rt.gaussian.encode_with_indexes, dec_rt.gaussian.decode_with_indexes
-        enc_z, dec_z = rt._encode_z, dec_rt._decode_z
+        encode, decode = enc_coder.encode_with_indexes, dec_coder.decode_stream
 
-        def encode_y(coder, y_q, idx):
-            self.enc.append(y_q.reshape(-1).copy())
-            return enc_y(coder, y_q, idx)
+        def tap_encode(symbols, indexes, table):
+            self.enc.append(np.clip(np.asarray(symbols).reshape(-1), -30000,
+                                    30000).astype(np.int16))
+            return encode(symbols, indexes, table)
 
-        def decode_y(coder, idx):
-            out = dec_y(coder, idx)
-            self.dec.append(out.reshape(-1).astype("int16"))
+        def tap_decode(indexes, table):
+            out = decode(indexes, table)
+            self.dec.append(np.asarray(out).reshape(-1).astype(np.int16))
             return out
 
-        def encode_z(name, z):
-            self.enc.append(z.permute(0, 2, 3, 1).reshape(-1).cpu().numpy()
-                            .astype("int16"))
-            return enc_z(name, z)
-
-        def decode_z(name, shape):
-            out = dec_z(name, shape)
-            self.dec.append(out.permute(0, 2, 3, 1).reshape(-1).cpu().numpy()
-                            .astype("int16"))
-            return out
-
-        rt.gaussian.encode_with_indexes = encode_y
-        dec_rt.gaussian.decode_with_indexes = decode_y
-        rt._encode_z, dec_rt._decode_z = encode_z, decode_z
+        enc_coder.encode_with_indexes = tap_encode
+        dec_coder.decode_stream = tap_decode
 
     def equal(self) -> bool:
         import numpy as np
 
-        ok = len(self.enc) == len(self.dec) and all(
-            np.array_equal(np.clip(a, -30000, 30000).astype("int16"), b)
-            for a, b in zip(self.enc, self.dec))
+        ok = bool(self.enc) and np.array_equal(np.concatenate(self.enc),
+                                               np.concatenate(self.dec))
         self.enc, self.dec = [], []
         return ok
 
@@ -716,18 +726,25 @@ def _no_kernel_launched(path: str) -> dict:
 
 
 def _conv_flops(module, fn) -> float:
-    """FLOPs of every nn.Conv2d call inside ``fn()``, reckoned from the
-    shapes: 2 x output elements x (input channels / groups) x kh x kw."""
+    """FLOPs of every convolution inside ``fn()``, reckoned from the
+    shapes: 2 x output elements x (input channels / groups) x kh x kw, and
+    for a transposed convolution 2 x input elements x (output channels /
+    groups) x kh x kw."""
     import torch.nn as nn
 
     total = [0.0]
 
     def hook(conv, inputs, out):
         kh, kw = conv.kernel_size
-        total[0] += 2.0 * out.numel() * conv.in_channels / conv.groups * kh * kw
+        if isinstance(conv, nn.ConvTranspose2d):
+            total[0] += (2.0 * inputs[0].numel() * conv.out_channels
+                         / conv.groups * kh * kw)
+        else:
+            total[0] += (2.0 * out.numel() * conv.in_channels / conv.groups
+                         * kh * kw)
 
     handles = [m.register_forward_hook(hook) for m in module.modules()
-               if isinstance(m, nn.Conv2d)]
+               if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
     try:
         fn()
     finally:
@@ -929,9 +946,9 @@ def evc_scalable_phase(results: dict):
 
 def image_cli_phase(results: dict):
     """The image CLI in process on two seeded 768x512 PNGs: evc_LL at 2
-    rates and intra_hem at 1 writing streams (each .bin decoded again by a
-    fresh runtime must give the CLI's recon exactly), then intra_dc at 1
-    rate."""
+    rates, intra_hem and mbt2018 (a zoo model: one rate, wavefront AR) at 1
+    writing streams (each .bin decoded again by a fresh runtime must give
+    the CLI's recon exactly), then intra_dc at 1 rate."""
     import tempfile
 
     import torch
@@ -951,16 +968,16 @@ def image_cli_phase(results: dict):
             png.write_png(os.path.join(folder, name), (img * 255).round()
                           .to(torch.uint8).cpu().numpy())
 
-        def run(tag, *extra):
+        def run(tag, *extra, cls=rtm.EvcCodecRuntime):
             recons = []
-            decompress = rtm.EvcCodecRuntime.decompress
+            decompress = cls.decompress
 
             def recording(self, *a, **k):
                 out = decompress(self, *a, **k)
                 recons.append(out["x_hat"].clone())
                 return out
 
-            rtm.EvcCodecRuntime.decompress = recording
+            cls.decompress = recording
             _reset_counts()
             t = time.time()
             try:
@@ -969,7 +986,7 @@ def image_cli_phase(results: dict):
                     os.path.join(tmp, tag), "--output_path",
                     os.path.join(tmp, tag + ".json"), "--verbose", "0", *extra])
             finally:
-                rtm.EvcCodecRuntime.decompress = decompress
+                cls.decompress = decompress
             wall = time.time() - t
             counts = _no_kernel_launched(f"image_cli {tag}")
             rates = {f"rate_{r}" for r in range(len(res["average"]))}
@@ -995,8 +1012,13 @@ def image_cli_phase(results: dict):
             again = []
             for name in names:
                 for r in range(rates):
-                    h, w, qi, s = stream.decode_i_ushort_q(
-                        os.path.join(tmp, tag, f"{name}_{r}.bin"))
+                    path = os.path.join(tmp, tag, f"{name}_{r}.bin")
+                    if isinstance(fresh, rtm.IntraZooRuntime):
+                        h, w, strings = stream.decode_i_strings(path)
+                        again.append(fresh.decompress(
+                            strings, fresh.latent_shape(h, w))["x_hat"])
+                        continue
+                    h, w, qi, s = stream.decode_i_ushort_q(path)
                     again.append(fresh.decompress(s, h, w, qi / 100)["x_hat"])
             if len(recons) != len(again) or not all(
                     torch.equal(a, b) for a, b in zip(recons, again)):
@@ -1014,11 +1036,15 @@ def image_cli_phase(results: dict):
         hem_sizes = redecode("intra_hem", run(
             "intra_hem", "--model", "intra_hem", "--rate_num", "1",
             "--write_stream", "1"), 1)
+        zoo_sizes = redecode("mbt2018", run(
+            "mbt2018", "--model", "mbt2018", "--rate_num", "1",
+            "--write_stream", "1", cls=rtm.IntraZooRuntime), 1)
         run("intra_dc", "--model", "intra_dc", "--rate_num", "1",
             "--write_stream", "1")
-        print(f"image_cli checks: {len(sizes)} evc_LL and {len(hem_sizes)} "
-              f"intra_hem .bin files re-decoded by a fresh runtime equal the "
-              f"CLI's recon ({sizes}, {hem_sizes} bytes)", flush=True)
+        print(f"image_cli checks: {len(sizes)} evc_LL, {len(hem_sizes)} "
+              f"intra_hem and {len(zoo_sizes)} mbt2018 .bin files re-decoded "
+              f"by a fresh runtime equal the CLI's recon ({sizes}, "
+              f"{hem_sizes}, {zoo_sizes} bytes)", flush=True)
     results["image_cli"] = runs
 
 
@@ -1208,6 +1234,7 @@ def hem_phase(results: dict):
 
 
 K1_HEM_MODE = "block:4,4,64,128,median4"   # ops/warp.py RD_GATED_BLOCK_MODE
+K1_MC_SPEC = (4, 4, 64, 128, "median4")     # the same, as arguments
 
 
 def hem_block_phase(results: dict):
@@ -1245,6 +1272,7 @@ def hem_block_phase(results: dict):
                              mv_q, y_q)
         dec_ms = _sync_ms(t)
         counts = _counts()
+        sym_ok, gap = tap.equal(), _dpb_gap(comp["dpb"], dec["dpb"])
         reps = [_hem_p_frame(prt, tap, x, de, dd, "dmc_hem block mc")[0]
                 for _ in range(3)]
     finally:
@@ -1253,7 +1281,6 @@ def hem_block_phase(results: dict):
             h.remove()
     per_side = {"compress": n_compress,
                 "decompress": counts["block_warp"] - n_compress}
-    sym_ok, gap = tap.equal(), _dpb_gap(comp["dpb"], dec["dpb"])
     if not (sym_ok and gap <= RECON_TOL):
         raise AssertionError(f"hem block mc: symbols equal {sym_ok}, DPB "
                              f"gap {gap}")
@@ -1268,7 +1295,7 @@ def hem_block_phase(results: dict):
     mv2 = bilinear_down2(mv) / 2
     mv3 = bilinear_down2(mv2) / 2
     f1, f2, f3 = seen["features"]
-    spec = (4, 4, 64, 128, "median4")
+    spec = K1_MC_SPEC
     checks = {}
     for name, im, flow in (("frame_3ch", de["ref_frame"], mv),
                            ("context1_64ch", f1, mv), ("context2_64ch", f2, mv2),
@@ -1350,18 +1377,19 @@ def _write_png_sequence(folder: str, n_frames: int):
                       .cpu().numpy())
 
 
-def _redecode_hem_pngs(stream_dir: str, seq: str) -> list:
-    """Decode the CLI's intra_hem + dmc_hem .bin files again in a fresh
-    runtime pair built as the CLI builds them; the recons as the CLI's PNG
-    writer rounds them."""
+def _redecode_pngs(stream_dir: str, seq: str, i_model: str,
+                   p_model: str) -> list:
+    """Decode the CLI's .bin files again in a fresh runtime pair built as
+    the CLI builds them, the DPB kept as the GOP runner keeps it; the
+    recons as the CLI's PNG writer rounds them."""
     import numpy as np
 
     from dcvc_tpu_torch.models.registry import build
     from dcvc_tpu_torch.runner.adapters import adapt_i_runtime, adapt_p_runtime
     from dcvc_tpu_torch.utils import stream
 
-    irt, prt = (adapt_i_runtime(build("intra_hem")[1]),
-                adapt_p_runtime(build("dmc_hem")[1]))
+    irt, prt = (adapt_i_runtime(build(i_model)[1]),
+                adapt_p_runtime(build(p_model)[1]))
     irt.update()
     prt.update()
     out, dpb = [], None
@@ -1370,8 +1398,8 @@ def _redecode_hem_pngs(stream_dir: str, seq: str) -> list:
         if i == 0:
             h, w, qc, qi, s = stream.decode_i(path)
             x_hat = irt.decompress(s, h, w, qc, qi)["x_hat"].clamp(0.0, 1.0)
-            dpb = {"ref_frame": x_hat, "ref_feature": None, "ref_y": None,
-                   "ref_mv_y": None}
+            dpb = {"ref_frame": x_hat, "ref_feature": None,
+                   "ref_mv_feature": None, "ref_y": None, "ref_mv_y": None}
         else:
             qc, qi, fi, s = stream.decode_p(path)
             dpb = dict(prt.decompress(dpb, s, HEIGHT, WIDTH, qc, qi, fi)["dpb"])
@@ -1379,6 +1407,33 @@ def _redecode_hem_pngs(stream_dir: str, seq: str) -> list:
         recon = x_hat[0, :, :HEIGHT, :WIDTH].permute(1, 2, 0).cpu().numpy()
         out.append(np.clip(np.rint(recon * 255.0), 0, 255).astype(np.uint8))
     return out
+
+
+def _png_sequence_config(tmp: str, seq: str) -> str:
+    """The panning content as a PNG sequence under ``tmp`` and a dataset
+    config naming it; the config's path."""
+    _write_png_sequence(os.path.join(tmp, seq), CLI_FRAMES)
+    cfg_path = os.path.join(tmp, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"root_path": tmp, "test_classes": {"smoke": {
+            "test": 1, "base_path": "", "src_type": "png",
+            "sequences": {seq: {"width": WIDTH, "height": HEIGHT,
+                                "frames": CLI_FRAMES, "gop": 32}}}}}, f)
+    return cfg_path
+
+
+def _cli_row(sm: dict, wall: float, counts: dict, tag: str) -> dict:
+    """A video CLI run's frames as its summary records them; fails on a
+    missing frame or a non-finite one."""
+    frames = [{"type": "PI"[sm["frame_type"][i] == 0],
+               "encode_ms": sm["frame_encoding_time"][i] * 1e3,
+               "decode_ms": sm["frame_decoding_time"][i] * 1e3,
+               "bpp": sm["frame_bpp"][i], "psnr": sm["frame_psnr"][i]}
+              for i in range(sm["frame_num"])]
+    if sm["frame_num"] != CLI_FRAMES or not all(
+            math.isfinite(r["psnr"]) and r["bpp"] > 0 for r in frames):
+        raise AssertionError(f"cli {tag}: bad frames {frames}")
+    return {"wall_s": wall, "launches": counts, "frames": frames}
 
 
 def hem_cli_phase(results: dict):
@@ -1394,13 +1449,7 @@ def hem_cli_phase(results: dict):
 
     seq, runs = "synthetic_1080p_png", {}
     with tempfile.TemporaryDirectory() as tmp:
-        _write_png_sequence(os.path.join(tmp, seq), CLI_FRAMES)
-        cfg_path = os.path.join(tmp, "cfg.json")
-        with open(cfg_path, "w") as f:
-            json.dump({"root_path": tmp, "test_classes": {"smoke": {
-                "test": 1, "base_path": "", "src_type": "png",
-                "sequences": {seq: {"width": WIDTH, "height": HEIGHT,
-                                    "frames": CLI_FRAMES, "gop": 32}}}}}, f)
+        cfg_path = _png_sequence_config(tmp, seq)
 
         def run(tag, *extra):
             _reset_counts()
@@ -1411,24 +1460,16 @@ def hem_cli_phase(results: dict):
                 "--write_stream", "1", "--stream_path",
                 os.path.join(tmp, tag), "--output_path",
                 os.path.join(tmp, tag + ".json"), "--verbose", "2", *extra])
-            wall = time.time() - t
-            counts = _no_kernel_launched(f"cli {tag}")
             sm = res[seq]["rate_0"]
-            frames = [{"type": "PI"[sm["frame_type"][i] == 0],
-                       "encode_ms": sm["frame_encoding_time"][i] * 1e3,
-                       "decode_ms": sm["frame_decoding_time"][i] * 1e3,
-                       "bpp": sm["frame_bpp"][i], "psnr": sm["frame_psnr"][i]}
-                      for i in range(sm["frame_num"])]
-            if sm["frame_num"] != CLI_FRAMES or not all(
-                    math.isfinite(r["psnr"]) and r["bpp"] > 0 for r in frames):
-                raise AssertionError(f"cli {tag}: bad frames {frames}")
-            runs[tag] = {"wall_s": wall, "launches": counts, "frames": frames}
+            runs[tag] = _cli_row(sm, time.time() - t,
+                                 _no_kernel_launched(f"cli {tag}"), tag)
             print(f"cli {tag}: {json.dumps(runs[tag])}", flush=True)
             return sm
 
         run("hem", "--i_frame_model", "intra_hem", "--p_frame_model",
             "dmc_hem", "--decoded_frame_path", os.path.join(tmp, "decoded"))
-        again = _redecode_hem_pngs(os.path.join(tmp, "hem"), seq)
+        again = _redecode_pngs(os.path.join(tmp, "hem"), seq, "intra_hem",
+                               "dmc_hem")
         for i, recon in enumerate(again):
             written = png.read_png(os.path.join(tmp, "decoded", seq,
                                                 f"im{i + 1:05d}.png"))
@@ -1443,6 +1484,485 @@ def hem_cli_phase(results: dict):
           f"a fresh runtime pair's re-decode; evc_SS --force_intra coded "
           f"{CLI_FRAMES} I-frames", flush=True)
     results["hem_cli"] = runs
+
+
+ZOO_SEEDS = {"bmshj2018-factorized": 50, "bmshj2018-hyperprior": 51,
+             "mbt2018-mean": 52, "mbt2018": 53, "cheng2020-anchor": 54}
+TCM_I, GEN1_I = "mbt2018-mean", "cheng2020-anchor"   # their I-frame models
+P_SEEDS = {"dmc_tcm": 55, "dcvc_gen1": 56}
+GEN1_LATENT_GAIN = 10.0
+
+
+class _ArClock:
+    """Host ms of each wavefront AR call (``runtime.ar_encode`` /
+    ``ar_decode``), in call order, while installed."""
+
+    def __enter__(self):
+        from dcvc_tpu_torch.models import runtime as rtm
+
+        self.calls = []
+        self._saved = rtm.ar_encode, rtm.ar_decode
+
+        def clocked(fn, side):
+            def run(*a, **k):
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                self.calls.append((side, (time.perf_counter() - t) * 1e3))
+                return out
+            return run
+
+        rtm.ar_encode = clocked(self._saved[0], "encode")
+        rtm.ar_decode = clocked(self._saved[1], "decode")
+        return self
+
+    def __exit__(self, *exc):
+        from dcvc_tpu_torch.models import runtime as rtm
+
+        rtm.ar_encode, rtm.ar_decode = self._saved
+
+    def take(self) -> dict:
+        """{"encode": [ms, ...], "decode": [ms, ...]} since the last take."""
+        out = {"encode": [], "decode": []}
+        for side, ms in self.calls:
+            out[side].append(ms)
+        self.calls = []
+        return out
+
+
+def _pad64(x):
+    import torch.nn.functional as F
+
+    from dcvc_tpu_torch.ops.warp import get_padding_size
+
+    _, pr, _, pb = get_padding_size(x.shape[2], x.shape[3], 64)
+    return F.pad(x, (0, pr, 0, pb), mode="replicate")
+
+
+def _zoo_i_frame(rt, tap, x, what):
+    """compress -> packed substreams -> decompress: symbols equal, recon
+    gap 0.0 (limit F32_TOL)."""
+    from dcvc_tpu_torch.utils import stream
+
+    t = time.time()
+    comp = rt.compress(x)
+    data = stream.pack_strings(comp["strings"])
+    enc_ms = _sync_ms(t)
+    t = time.time()
+    dec = rt.decompress(stream.unpack_strings(data),
+                        rt.latent_shape(x.shape[2], x.shape[3]))
+    dec_ms = _sync_ms(t)
+    sym_ok = tap.equal()
+    gap = (comp["x_hat"] - dec["x_hat"]).abs().max().item()
+    if not (sym_ok and gap <= F32_TOL and _finite(dec["x_hat"])):
+        raise AssertionError(f"{what}: symbols equal {sym_ok}, recon gap {gap}")
+    return {"bytes": len(data), "encode_ms": enc_ms, "decode_ms": dec_ms,
+            "max_recon_gap": gap}, comp, dec
+
+
+def zoo_phase(results: dict):
+    """The five zoo models at full width on one seeded 1080p image padded
+    to 1088: a warm-up round trip, then a timed one; symbols equal, recon
+    gap 0.0; the AR models' host wavefront loop timed apart. No kernel."""
+    import torch
+
+    from dcvc_tpu_torch.models.intra_zoo import build_zoo
+    from dcvc_tpu_torch.models.runtime import IntraZooRuntime
+
+    x = _pad64(_image(HEIGHT, WIDTH, 7))
+    rows = {}
+    with _ArClock() as clock:
+        for name, seed in ZOO_SEEDS.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            rt = IntraZooRuntime(build_zoo(name, seed=seed))
+            rt.update()
+            tap = _SymbolTap(rt)
+            _reset_counts()
+            _zoo_i_frame(rt, tap, x, name)
+            clock.take()
+            row, _, _ = _zoo_i_frame(rt, tap, x, name)
+            ar = clock.take()
+            row.update(bpp=row["bytes"] * 8 / (HEIGHT * WIDTH),
+                       symbols_equal=True,
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       launches=_no_kernel_launched(f"zoo {name}"))
+            if ar["encode"]:
+                row["ar_host_ms"] = {"encode": sum(ar["encode"]),
+                                     "decode": sum(ar["decode"])}
+                row["device_and_rest_ms"] = {
+                    "encode": row["encode_ms"] - sum(ar["encode"]),
+                    "decode": row["decode_ms"] - sum(ar["decode"])}
+            rows[name] = row
+            print(f"zoo {name}: {json.dumps(row)}", flush=True)
+            del rt
+    results["zoo"] = rows
+
+
+def _zoo_dpb(irt, tap, x, name):
+    """A zoo I-frame: the encoder's and the decoder's first DPB."""
+    row, comp, dec = _zoo_i_frame(irt, tap, x, name)
+    return row, {"ref_frame": comp["x_hat"], "ref_feature": None}, \
+        {"ref_frame": dec["x_hat"], "ref_feature": None}
+
+
+def _tcm_p_frame(prt, tap, x, de, dd, what):
+    """A dmc_tcm P-frame: compress -> the bare payload -> decompress from
+    the decoder's DPB; symbols equal, DPB gap <= RECON_TOL."""
+    t = time.time()
+    comp = prt.compress(x, de["ref_frame"], de["ref_feature"])
+    data = bytes(comp["bit_stream"])
+    enc_ms = _sync_ms(t)
+    t = time.time()
+    dec = prt.decompress(dd["ref_frame"], dd["ref_feature"], data,
+                         x.shape[2], x.shape[3])
+    dec_ms = _sync_ms(t)
+    enc = {"ref_frame": comp["x_hat"], "ref_feature": comp["feature"]}
+    dec = {"ref_frame": dec["x_hat"], "ref_feature": dec["feature"]}
+    sym_ok, gap = tap.equal(), _dpb_gap(enc, dec)
+    if not (sym_ok and gap <= RECON_TOL and _finite(dec["ref_frame"])):
+        raise AssertionError(f"{what}: symbols equal {sym_ok}, DPB gap {gap}")
+    return {"bytes": len(data), "encode_ms": enc_ms, "decode_ms": dec_ms,
+            "max_dpb_gap": gap}, enc, dec, data
+
+
+def tcm_phase(results: dict):
+    """A zoo I-frame (mbt2018-mean) + dmc_tcm (128 / 64 / 96) at 1080p
+    padded to 1088: two chained P-frames with aligned_enc off (the last a
+    warm-up + 3) and then on; mc warps exact, no kernel launches."""
+    import torch
+
+    from dcvc_tpu_torch.models.intra_zoo import build_zoo
+    from dcvc_tpu_torch.models.runtime import IntraZooRuntime, TcmVideoRuntime
+    from dcvc_tpu_torch.models.video_tcm import build_dmc_tcm
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    irt = IntraZooRuntime(build_zoo(TCM_I, seed=ZOO_SEEDS[TCM_I]))
+    prt = TcmVideoRuntime(build_dmc_tcm(seed=P_SEEDS["dmc_tcm"]))
+    irt.update()
+    prt.update()
+    taps = {"i": _SymbolTap(irt), "p": _SymbolTap(prt)}
+    xs = _hem_frames()
+    _reset_counts()
+    i_row, dpb0_enc, dpb0_dec = _zoo_dpb(irt, taps["i"], xs[0], TCM_I)
+    chains, streams = {}, {}
+    for aligned in (False, True):
+        prt.aligned_enc = aligned
+        de, dd = dpb0_enc, dpb0_dec
+        rows = []
+        for i in range(1, 1 + P_FRAMES):
+            reps = 4 if (i == P_FRAMES and not aligned) else 1
+            runs = [_tcm_p_frame(prt, taps["p"], xs[i], de, dd,
+                                 f"dmc_tcm P{i}") for _ in range(reps)]
+            row, enc, dec, data = runs[-1]
+            if reps > 1:
+                row = dict(row, encode_ms_median3=_median3(
+                    [r[0] for r in runs], "encode_ms"),
+                    decode_ms_median3=_median3([r[0] for r in runs],
+                                               "decode_ms"))
+            rows.append(row)
+            streams.setdefault(aligned, []).append(data)
+            de, dd = enc, dec
+        chains["aligned_enc" if aligned else "direct"] = rows
+    prt.aligned_enc = False
+    if streams[True] != streams[False]:
+        raise AssertionError("dmc_tcm: aligned_enc wrote other streams")
+    row = {"models": {TCM_I: "N=128 M=192", "dmc_tcm": "128/64/96"},
+           "i_frame": i_row, "p_frames": chains,
+           "p_bpp": chains["direct"][-1]["bytes"] * 8 / (HEIGHT * WIDTH),
+           "aligned_streams_identical": True, "symbols_equal": True,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": _no_kernel_launched("tcm runtimes")}
+    print(f"tcm {json.dumps(row)}", flush=True)
+    results["tcm"] = row
+    results["_tcm_state"] = (prt, taps["p"], xs[-1].roll(4, dims=3), de, dd)
+
+
+def _k1_checks(pairs, what) -> dict:
+    """K1 against its plain version (atol 0) on each (name, im, flow)."""
+    import torch
+
+    from dcvc_tpu_torch.ops import block_warp as bw
+
+    checks = {}
+    for name, im, flow in pairs:
+        ker = bw.block_warp_nchw(im, flow, *K1_MC_SPEC)
+        torch.cuda.synchronize()
+        plain = bw.block_warp_plain_nchw(im, flow, *K1_MC_SPEC)
+        err = (ker - plain).abs().max().item()
+        if not (err == 0.0 and _finite(ker)):
+            raise AssertionError(f"K1 {what} {name} {tuple(im.shape)}: max "
+                                 f"abs err {err} > 0")
+        checks[name] = {"shape": list(im.shape), "max_abs_err": err}
+    return checks
+
+
+def _k1_timing(im, flow) -> dict:
+    """K1's time at ``im``'s shape beside its bound and its plain version."""
+    from dcvc_tpu_torch.ops import block_warp as bw
+
+    M, C, H, W = im.shape
+    nbytes = 2 * im.numel() * 4 + flow.numel() * 4
+    flops = M * H * W * (12 + 9 * C)
+    row = {"shape": list(im.shape),
+           "ms": _time_ms(lambda: bw.block_warp_nchw(im, flow, *K1_MC_SPEC),
+                          20, 3),
+           "plain_ms": _time_ms(lambda: bw.block_warp_plain_nchw(
+               im, flow, *K1_MC_SPEC), 3),
+           "bytes": nbytes, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "ops_ms": flops / F32_FLOPS * 1e3}
+    row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+    row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
+                       else "operations")
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def _block_mc(m, tap, compress, decompress, gap_fn, expected: dict, what):
+    """One P-frame with ``m.mc_warp_mode`` = the block warp, counting K1
+    per side (must be ``expected``), symbols exact and ``gap_fn(comp,
+    dec)`` <= RECON_TOL; that call is the warm-up of three timed round
+    trips (median)."""
+    from dcvc_tpu_torch.ops import block_warp as bw
+
+    def round_trip():
+        t = time.time()
+        comp = compress()
+        enc_ms = _sync_ms(t)
+        n = bw.block_warp_nchw.launches
+        t = time.time()
+        dec = decompress(comp)
+        dec_ms = _sync_ms(t)
+        sym_ok, gap = tap.equal(), gap_fn(comp, dec)
+        if not (sym_ok and gap <= RECON_TOL):
+            raise AssertionError(f"{what}: symbols equal {sym_ok}, gap {gap}")
+        return {"encode_ms": enc_ms, "decode_ms": dec_ms, "max_gap": gap}, n
+
+    m.mc_warp_mode = K1_HEM_MODE
+    try:
+        _reset_counts()
+        row, n_compress = round_trip()
+        counts = _counts()
+        reps = [round_trip()[0] for _ in range(3)]
+    finally:
+        m.mc_warp_mode = None
+    per_side = {"compress": n_compress,
+                "decompress": counts["block_warp"] - n_compress}
+    if per_side != expected or counts["band_copy"]:
+        raise AssertionError(f"{what}: K1 launches {per_side}, K2 "
+                             f"{counts['band_copy']}; expected {expected}, 0")
+    return dict(row, symbols_equal=True,
+                encode_ms_median3=sorted(r["encode_ms"] for r in reps)[1],
+                decode_ms_median3=sorted(r["decode_ms"] for r in reps)[1],
+                launches=counts, k1_launches=per_side)
+
+
+def tcm_block_phase(results: dict):
+    """One more dmc_tcm P-frame with the block mc: K1 4 + 4 (the frame
+    warp and the three context warps, each side), symbols exact; then K1
+    against its plain version at the four mc shapes on the tensors that
+    compress warped."""
+    from dcvc_tpu_torch.ops.warp import bilinear_down2
+
+    prt, tap, x, de, dd = results.pop("_tcm_state")
+    m = prt.module
+    seen = {}
+    hooks = [m.mv_decoder.register_forward_hook(
+                 lambda mod, i, out: seen.setdefault("mv", out)),
+             m.feature_extractor.register_forward_hook(
+                 lambda mod, i, out: seen.setdefault("features", out))]
+    try:
+        row = _block_mc(
+            m, tap, lambda: prt.compress(x, de["ref_frame"], de["ref_feature"]),
+            lambda c: prt.decompress(dd["ref_frame"], dd["ref_feature"],
+                                     c["bit_stream"], x.shape[2], x.shape[3]),
+            lambda c, d: max((c[k] - d[k]).abs().max().item()
+                             for k in ("x_hat", "feature")),
+            {"compress": 4, "decompress": 4}, "tcm block mc")
+    finally:
+        for h in hooks:
+            h.remove()
+    mv = seen["mv"]
+    mv2 = bilinear_down2(mv) / 2
+    mv3 = bilinear_down2(mv2) / 2
+    f1, f2, f3 = seen["features"]
+    row["k1_vs_plain"] = _k1_checks(
+        (("frame_3ch", de["ref_frame"], mv), ("context1_64ch", f1, mv),
+         ("context2_64ch", f2, mv2), ("context3_64ch", f3, mv3)), "tcm")
+    print(f"tcm_block_mc {json.dumps(row)}", flush=True)
+    results["tcm_block"] = row
+
+
+def _gen1_p_frame(prt, tap, x, ref_enc, ref_dec, clock, what):
+    """A dcvc_gen1 P-frame: compress -> four packed substreams ->
+    decompress from the decoder's reference; symbols equal, recon gap <=
+    RECON_TOL. The host ms of each substream's entropy coding: mv_z and z
+    (bit-estimator rANS), mv_y and y (the wavefront AR loops)."""
+    from dcvc_tpu_torch.utils import stream
+
+    zt = []
+    encode_z = prt._encode_z
+
+    def timed_z(name, z):
+        t = time.perf_counter()
+        encode_z(name, z)
+        zt.append((time.perf_counter() - t) * 1e3)
+
+    prt._encode_z = timed_z
+    try:
+        t = time.time()
+        comp = prt.compress(ref_enc, x)
+        data = stream.pack_strings([comp["mv_z_string"], comp["mv_y_string"],
+                                    comp["z_string"], comp["y_string"]])
+        enc_ms = _sync_ms(t)
+    finally:
+        del prt._encode_z
+    mv_z, mv_y, z, y = stream.unpack_strings(data)
+    t = time.time()
+    dec = prt.decompress(ref_dec, mv_y, mv_z, y, z, x.shape[2], x.shape[3])
+    dec_ms = _sync_ms(t)
+    ar = clock.take()
+    sym_ok = tap.equal()
+    gap = (comp["recon_image"] - dec["recon_image"]).abs().max().item()
+    if not (sym_ok and gap <= RECON_TOL and _finite(dec["recon_image"])):
+        raise AssertionError(f"{what}: symbols equal {sym_ok}, gap {gap}")
+    return {"bytes": len(data), "encode_ms": enc_ms, "decode_ms": dec_ms,
+            "max_recon_gap": gap,
+            "substream_bytes": {k: len(s) for k, s in zip(
+                ("mv_z", "mv_y", "z", "y"), (mv_z, mv_y, z, y))},
+            "substream_encode_host_ms": {"mv_z": zt[0], "mv_y": ar["encode"][0],
+                                         "z": zt[1], "y": ar["encode"][1]},
+            "ar_decode_host_ms": {"mv_y": ar["decode"][0],
+                                  "y": ar["decode"][1]}}, comp, dec
+
+
+def gen1_phase(results: dict):
+    """A zoo I-frame (cheng2020-anchor) + dcvc_gen1 (128 / 64 / 96) at
+    1080p padded to 1088: two chained P-frames, mc exact, no kernel; the
+    last a warm-up + 3 timed. Then one block-mc P-frame: K1 1 + 1 (the
+    context warp each side), and K1 against its plain version at that
+    [1, 64, 1088, 1920] shape, timed beside its bound. The last layers of
+    the mv and contextual encoders are scaled x GEN1_LATENT_GAIN: at the
+    seeded init both AR latents round to zeros, and the AR coder would
+    code nothing but zero symbols."""
+    import torch
+
+    from dcvc_tpu_torch.models.intra_zoo import build_zoo
+    from dcvc_tpu_torch.models.runtime import DcvcGen1Runtime, IntraZooRuntime
+    from dcvc_tpu_torch.models.video_dcvc import build_dcvc_gen1
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    irt = IntraZooRuntime(build_zoo(GEN1_I, seed=ZOO_SEEDS[GEN1_I]))
+    module = build_dcvc_gen1(seed=P_SEEDS["dcvc_gen1"])
+    with torch.no_grad():
+        module.mvEncoder[-1].weight.mul_(GEN1_LATENT_GAIN)
+        module.contextualEncoder[-1].weight.mul_(GEN1_LATENT_GAIN)
+    prt = DcvcGen1Runtime(module)
+    irt.update()
+    prt.update()
+    taps = {"i": _SymbolTap(irt), "p": _SymbolTap(prt)}
+    xs = _hem_frames()
+    with _ArClock() as clock:
+        _reset_counts()
+        i_row, comp_i, dec_i = _zoo_i_frame(irt, taps["i"], xs[0], GEN1_I)
+        i_ar = clock.take()
+        i_row["ar_host_ms"] = {k: sum(v) for k, v in i_ar.items()}
+        ref_enc, ref_dec = comp_i["x_hat"], dec_i["x_hat"]
+        rows = []
+        for i in range(1, 1 + P_FRAMES):
+            reps = 4 if i == P_FRAMES else 1
+            runs = [_gen1_p_frame(prt, taps["p"], xs[i], ref_enc, ref_dec,
+                                  clock, f"dcvc_gen1 P{i}")
+                    for _ in range(reps)]
+            row, comp, dec = runs[-1]
+            if reps > 1:
+                row = dict(row, encode_ms_median3=_median3(
+                    [r[0] for r in runs], "encode_ms"),
+                    decode_ms_median3=_median3([r[0] for r in runs],
+                                               "decode_ms"))
+            rows.append(row)
+            ref_enc, ref_dec = comp["recon_image"], dec["recon_image"]
+        counts = _no_kernel_launched("gen1 runtimes")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        m = prt.module
+        seen = {}
+        mc = m.motion_compensation
+
+        def spy(ref, mv):
+            seen.setdefault("mc", (ref, mv))
+            return mc(ref, mv)
+
+        m.motion_compensation = spy
+        x = xs[-1].roll(4, dims=3)
+        try:
+            block = _block_mc(
+                m, taps["p"], lambda: prt.compress(ref_enc, x),
+                lambda c: prt.decompress(ref_dec, c["mv_y_string"],
+                                         c["mv_z_string"], c["y_string"],
+                                         c["z_string"], x.shape[2],
+                                         x.shape[3]),
+                lambda c, d: (c["recon_image"] - d["recon_image"]).abs()
+                .max().item(), {"compress": 1, "decompress": 1},
+                "gen1 block mc")
+        finally:
+            del m.motion_compensation
+        clock.take()
+    ref, mv = seen["mc"]
+    with torch.no_grad():
+        feat = m.feature_extract(ref)
+    block["k1_vs_plain"] = _k1_checks((("context_64ch", feat, mv),), "gen1")
+    block["k1_64ch_full_res"] = _k1_timing(feat, mv)
+    row = {"models": {GEN1_I: "N=M=192", "dcvc_gen1": "128/64/96",
+                      "latent_gain": GEN1_LATENT_GAIN},
+           "i_frame": i_row, "p_frames": rows,
+           "p_bpp": rows[-1]["bytes"] * 8 / (HEIGHT * WIDTH),
+           "symbols_equal": True, "peak_mem_gib": peak, "launches": counts}
+    print(f"gen1 {json.dumps(row)}", flush=True)
+    print(f"gen1_block_mc {json.dumps(block)}", flush=True)
+    results["gen1"] = row
+    results["gen1_block"] = block
+
+
+def zoo_tcm_cli_phase(results: dict):
+    """The video CLI on the 1080p PNG sequence of hem_cli_phase: a zoo
+    I-frame model (mbt2018-mean) + dmc_tcm writing streams and the decoded
+    PNGs, which read back must equal a fresh runtime pair's re-decode of
+    the .bin files."""
+    import tempfile
+
+    import numpy as np
+
+    from dcvc_tpu_torch.tools import test_video
+    from dcvc_tpu_torch.utils import png
+
+    seq = "synthetic_1080p_png"
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = _png_sequence_config(tmp, seq)
+        _reset_counts()
+        t = time.time()
+        res = test_video.main([
+            "--test_config", cfg_path, "--force_frame_num", str(CLI_FRAMES),
+            "--rate_num", "1", "--q_indexes", "32", "--write_stream", "1",
+            "--i_frame_model", TCM_I, "--p_frame_model", "dmc_tcm",
+            "--stream_path", os.path.join(tmp, "tcm"), "--output_path",
+            os.path.join(tmp, "tcm.json"), "--decoded_frame_path",
+            os.path.join(tmp, "decoded"), "--verbose", "2"])
+        row = _cli_row(res[seq]["rate_0"], time.time() - t,
+                       _no_kernel_launched("cli zoo + tcm"), "zoo + tcm")
+        again = _redecode_pngs(os.path.join(tmp, "tcm"), seq, TCM_I,
+                               "dmc_tcm")
+        for i, recon in enumerate(again):
+            written = png.read_png(os.path.join(tmp, "decoded", seq,
+                                                f"im{i + 1:05d}.png"))
+            if not np.array_equal(written, recon):
+                raise AssertionError(f"cli zoo + tcm: decoded PNG {i} "
+                                     f"differs from the re-decoded recon")
+    print(f"cli zoo_tcm: {json.dumps(row)}", flush=True)
+    print(f"cli zoo_tcm checks: {CLI_FRAMES} {TCM_I} + dmc_tcm decoded PNGs "
+          f"equal a fresh runtime pair's re-decode", flush=True)
+    results["zoo_tcm_cli"] = row
 
 
 def main() -> int:
@@ -1476,7 +1996,9 @@ def main() -> int:
     phases = [kernel_phase, band_copy_phase, tile_warp_phase,
               reference_phase, main_path_phase, cli_phase,
               diag_phase, evc_phase, evc_scalable_phase, image_cli_phase,
-              hem_phase, hem_block_phase, canf_phase, hem_cli_phase]
+              hem_phase, hem_block_phase, canf_phase, hem_cli_phase,
+              zoo_phase, tcm_phase, tcm_block_phase, gen1_phase,
+              zoo_tcm_cli_phase]
     for i, phase in enumerate(phases):
         t = time.time()
         phase(results)
@@ -1489,8 +2011,9 @@ def main() -> int:
     cli_k1 = sum(r["launches"]["block_warp"] for r in results["cli"].values())
 
     def no_kernel_paths(kernel):
-        """Launches on the EVC / image-CLI / exact-mc HEM and CANF paths
-        (checked to be 0)."""
+        """Launches on the EVC / image-CLI / exact-mc HEM, CANF, TCM and
+        gen-1 / zoo paths and the CLI runs with exact mc (checked to be
+        0)."""
         return {
             "evc_runtimes": sum(r["launches"][kernel]
                                 for r in results["evc"].values()),
@@ -1500,8 +2023,14 @@ def main() -> int:
             "hem_runtimes": results["hem"]["launches"][kernel],
             "canf_runtimes": results["canf"]["launches"][kernel],
             "hem_cli": sum(r["launches"][kernel]
-                           for r in results["hem_cli"].values())}
+                           for r in results["hem_cli"].values()),
+            "zoo_runtimes": sum(r["launches"][kernel]
+                                for r in results["zoo"].values()),
+            "tcm_runtimes": results["tcm"]["launches"][kernel],
+            "gen1_runtimes": results["gen1"]["launches"][kernel],
+            "zoo_tcm_cli": results["zoo_tcm_cli"]["launches"][kernel]}
     hem_k1 = results["hem_block"]["k1_64ch_full_res"]
+    gen1_k1 = results["gen1_block"]["k1_64ch_full_res"]
     print(json.dumps({"kernels": [{
         "name": "block_warp", "route": "cuda",
         "source": "dcvc_tpu_torch/csrc/block_warp.cu",
@@ -1511,7 +2040,9 @@ def main() -> int:
         "launches_by_path": {
             "runtimes": results["launches"]["runtimes"]["block_warp"],
             "cli": cli_k1, "diag_dma": 0, **no_kernel_paths("block_warp"),
-            "hem_block_mc": results["hem_block"]["launches"]["block_warp"]},
+            "hem_block_mc": results["hem_block"]["launches"]["block_warp"],
+            "tcm_block_mc": results["tcm_block"]["launches"]["block_warp"],
+            "gen1_block_mc": results["gen1_block"]["launches"]["block_warp"]},
         "max_abs_err": max(r["max_abs_err"] for n, r in k1.items()
                            if n.endswith("f32")),
         "max_abs_err_bf16": max(r["max_abs_err"] for n, r in k1.items()
@@ -1532,6 +2063,12 @@ def main() -> int:
         "hem_mc_max_abs_err": max(
             r["max_abs_err"]
             for r in results["hem_block"]["k1_vs_plain"].values()),
+        "gen1_mc_64ch": {k: gen1_k1[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound")},
+        "tcm_gen1_mc_max_abs_err": max(
+            r["max_abs_err"] for ph in ("tcm_block", "gen1_block")
+            for r in results[ph]["k1_vs_plain"].values()),
     }, {
         "name": "band_copy", "route": "cuda",
         "source": "dcvc_tpu_torch/csrc/band_copy.cu",
@@ -1542,7 +2079,11 @@ def main() -> int:
                              "diag_dma": results["diag_dma"]["launches"],
                              **no_kernel_paths("band_copy"),
                              "hem_block_mc": results["hem_block"]["launches"]
-                             ["band_copy"]},
+                             ["band_copy"],
+                             "tcm_block_mc": results["tcm_block"]["launches"]
+                             ["band_copy"],
+                             "gen1_block_mc": results["gen1_block"]
+                             ["launches"]["band_copy"]},
         "max_abs_err": max(r["max_abs_err"]
                            for r in results["band_copy"].values()),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],

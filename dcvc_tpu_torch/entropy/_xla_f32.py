@@ -128,3 +128,24 @@ def tanh(x: np.ndarray) -> np.ndarray:
     for c in _TANH_DEN[1:]:
         q = _fma(x2, q, c)
     return np.where(np.abs(x) < f32(0.0004), x, (xc * p) / q)
+
+
+def batched_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """XLA:CPU's f32 ``[C, f_out, f_in] @ [C, f_in, N]`` for a small f_in:
+    one fused multiply-add per k, k ascending. Where f_out is 1 (XLA's
+    vector-matrix loop), its scalar remainder (column 0 when N <= 2, the
+    last column when N % 8 == 1) rounds each product and each sum apart."""
+    a64 = np.asarray(a, f32).astype(np.float64)
+    b64 = np.asarray(b, f32).astype(np.float64)
+    C, fo, fi = a64.shape
+    N = b64.shape[2]
+    fused = np.zeros((C, fo, N), f32)
+    apart = np.zeros((C, fo, N), f32)
+    for k in range(fi):
+        prod = a64[:, :, k:k + 1] * b64[:, k:k + 1, :]
+        fused = (prod + fused).astype(f32)
+        apart = apart + prod.astype(f32)
+    if fo == 1:
+        cols = [0] if N <= 2 else ([N - 1] if N % 8 == 1 else [])
+        fused[:, :, cols] = apart[:, :, cols]
+    return fused

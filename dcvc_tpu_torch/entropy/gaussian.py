@@ -92,6 +92,14 @@ class GaussianConditionalCoder:
         idx = (torch.log(s) - self.log_scale_min) / self.log_scale_step
         return torch.clamp(idx, 0, self.scale_level - 1).to(torch.int16)
 
+    def build_indexes_np(self, scales: np.ndarray) -> np.ndarray:
+        """The same bucketing on host arrays, in their own precision (the
+        AR coder's float64 scales): numpy, not ``torch.log``, whose f64
+        results need not be numpy's bits."""
+        scales = np.maximum(scales, 1e-5)
+        idx = (np.log(scales) - self.log_scale_min) / self.log_scale_step
+        return np.clip(idx, 0, self.scale_level - 1).astype(np.int32)
+
     def encode_with_indexes(self, coder: EntropyCoder, y_q, indexes):
         coder.encode_with_indexes(np.asarray(y_q).reshape(-1),
                                   np.asarray(indexes).reshape(-1), self.table)

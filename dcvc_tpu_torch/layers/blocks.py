@@ -77,19 +77,23 @@ class ResidualBlock(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """Pre-activation residual block (video_net.py:58-76)."""
+    """Pre-activation residual block (video_net.py:58-76; the HEM / TCM
+    variant adds ``start_from_relu``, DCVC-HEM/src/models/video_net.py:
+    74-96)."""
 
     def __init__(self, channel: int, slope: float = 0.01,
-                 end_with_relu: bool = False, bottleneck: bool = False):
+                 end_with_relu: bool = False, bottleneck: bool = False,
+                 start_from_relu: bool = True):
         super().__init__()
         inner = channel // 2 if bottleneck else channel
         self.slope = slope
         self.end_with_relu = end_with_relu
+        self.start_from_relu = start_from_relu
         self.conv1 = conv(channel, inner, 3)
         self.conv2 = conv(inner, channel, 3)
 
     def forward(self, x):
-        out = leaky_relu(x, self.slope)
+        out = leaky_relu(x, self.slope) if self.start_from_relu else x
         out = leaky_relu(self.conv1(out), self.slope)
         out = self.conv2(out)
         if self.end_with_relu:

@@ -1,17 +1,21 @@
 """Codec runtimes: device compute + host rANS entropy coding.
 
 Counterpart of ``dcvc_tpu/models/runtime.py`` (``_RuntimeBase``,
-``EvcCodecRuntime``, ``ScalableEvcRuntime``, ``HemVideoRuntime``,
+``EvcCodecRuntime``, ``ScalableEvcRuntime``, ``IntraZooRuntime``,
+``DcvcGen1Runtime``, ``TcmVideoRuntime``, ``HemVideoRuntime``,
 ``DmcRuntime``, ``IntraDcRuntime``; its ``_build_indexes_i16`` is
 ``GaussianConditionalCoder.build_indexes`` here); the layer the
 reference spreads across CompressionModel.update / compress / decompress
 (DCVC-DC/src/models/common_model.py:63-68, image_model.py:198-252,
 video_model.py:425-557; EVC/src/models/image_model.py:131-181;
-DCVC-HEM/src/models/video_model.py:263-375). Only int16
-symbol and scale-index planes cross to the host, in the JAX package's NHWC
-order, so streams are interchangeable with ``dcvc_tpu``'s. The decode is
-the plain serial chain per prior step (four-part or dual): scales on the
-device, rANS on the host, update on the device.
+DCVC-HEM/src/models/video_model.py:263-375; DCVC-TCM/src/models/
+video_net_dmc.py:321-415; DCVC/src/models/DCVC_net.py:234-420 and
+priors.py). Only int16 symbol and scale-index planes cross to the host, in
+the JAX package's NHWC order, so streams are interchangeable with
+``dcvc_tpu``'s. The decode is the plain serial chain per prior step
+(four-part or dual): scales on the device, rANS on the host, update on the
+device; the pixel-AR latents of gen-1 and the zoo's joint models are coded
+on the host by wavefronts (``ar_coding.py``).
 
 Frames and DPB tensors are NCHW. Runtimes run on ``cuda`` unless built with
 ``device="cpu"``; without a card they raise.
@@ -30,12 +34,20 @@ from ..entropy.bit_estimator import (
     decode_factorized,
     encode_factorized,
 )
+from ..entropy.bottleneck import (
+    bottleneck_decode,
+    bottleneck_encode,
+    build_bottleneck_tables,
+)
 from ..entropy.coder import AsyncEntropyCoder, EntropyCoder
 from ..entropy.gaussian import GaussianConditionalCoder
-from ..ops.warp import get_downsampled_shape
+from ..entropy.gaussian_conditional import GaussianConditional
+from ..ops.warp import get_downsampled_shape, get_padding_size
 from . import priors
+from .ar_coding import ArNets, ar_decode, ar_encode
 from .intra_dc import build_fine_q_tables
 from .video_dc import CH_MV, G_CH, Q_SCALE_NAMES, get_dmc_q_tables
+from .video_dcvc import extract_ar_nets
 
 
 def _to_host_nhwc(t: torch.Tensor) -> np.ndarray:
@@ -100,6 +112,11 @@ class _RuntimeBase:
         return torch.empty(t.shape, device=self.device).copy_(t)
 
     # host-side helpers -----------------------------------------------------
+
+    def _flush(self) -> bytes:
+        """Ends the stream being written; its bytes."""
+        self.entropy_coder.flush()
+        return self.entropy_coder.get_encoded_stream()
 
     def _encode_z(self, name, z_hat: torch.Tensor):
         encode_factorized(self.entropy_coder, _to_host_nhwc(z_hat),
@@ -234,6 +251,299 @@ class ScalableEvcRuntime(EvcCodecRuntime):
         out = self.module.compress_device(x, q_scale, cid)
         return {"bit_stream": self._encode_aligned(out),
                 "x_hat": out["x_hat"], "enc_id": cid}
+
+
+class IntraZooRuntime(_RuntimeBase):
+    """Runtime for the CompressAI-style intra zoo (``intra_zoo.py``).
+
+    Parity: DCVC/src/models/priors.py compress / decompress per family:
+    one string per latent (``[y]`` or ``[y, z]``), z (the factorized
+    model: y) through the EntropyBottleneck, y through the 64-level
+    GaussianConditional, one-shot or, for the joint models (``mbt2018``,
+    ``cheng2020-anchor``), by host wavefronts, whose stream has one part.
+    """
+
+    _KINDS = {"FactorizedPrior": "factorized", "ScaleHyperprior": "scale",
+              "MeanScaleHyperprior": "meanscale",
+              "JointAutoregressiveHierarchicalPriors": "joint",
+              "Cheng2020Anchor": "joint"}
+
+    def __init__(self, module, ec_thread=False, stream_part=1, device=None):
+        super().__init__(module, False, stream_part, device)
+        self.kind = self._KINDS[type(module).__name__]
+        self.gaussian = GaussianConditional()
+        self._table = self._medians = self._ar_nets = None
+
+    def update(self, force: bool = False):
+        if self.entropy_coder is not None and not force:
+            return
+        m = self.module
+        self.entropy_coder = EntropyCoder(
+            1 if self.kind == "joint" else self.stream_part)
+        self.gaussian.update(force=True)
+        self._table = build_bottleneck_tables(m.entropy_bottleneck)
+        self._medians = (m.entropy_bottleneck.medians().detach().float()
+                         .cpu().numpy())
+        if self.kind == "joint":
+            self._ar_nets = ArNets.from_modules(
+                m.context_prediction, m.entropy_parameters, means_first=False)
+
+    def latent_shape(self, height: int, width: int) -> tuple:
+        """(H, W) of the latent ``decompress`` decodes first, for a frame
+        of ``height`` x ``width`` padded to 64: y (the factorized model,
+        stride 16) or z (stride 64)."""
+        pl, pr, pt, pb = get_padding_size(height, width, 64)
+        ds = 16 if self.kind == "factorized" else 64
+        return (height + pt + pb) // ds, (width + pl + pr) // ds
+
+    @torch.no_grad()
+    def forward(self, x):
+        """Estimated-bits I-frame: ``{"x_hat", "bit", "bpp", ...}``."""
+        return self.module(self._tensor(x))
+
+    def _bottleneck(self, plane: np.ndarray) -> tuple:
+        """Codes an NHWC plane with the bottleneck: (string, its
+        dequantized values as the decoder gets them)."""
+        self.entropy_coder.reset()
+        bottleneck_encode(self.entropy_coder, plane, self._medians,
+                          self._table)
+        medians = self._medians.reshape(1, 1, 1, -1)
+        return self._flush(), self._from_host_nhwc(
+            np.round(plane - medians) + medians)
+
+    @torch.no_grad()
+    def compress(self, x):
+        """``{"strings", "shape" (the coded latent's H, W), "x_hat"}``."""
+        m, coder = self.module, self.entropy_coder
+        x = self._tensor(x)
+        if self.kind == "factorized":
+            y = _to_host_nhwc(m.analyze(x))
+            y_string, y_hat = self._bottleneck(y)
+            return {"strings": [y_string], "shape": y.shape[1:3],
+                    "x_hat": m.synthesize(y_hat)}
+
+        y, z = m.analyze(x)
+        z_string, z_hat = self._bottleneck(_to_host_nhwc(z))
+        y_np = _to_host_nhwc(y)
+        coder.reset()
+        if self.kind == "scale":
+            self.gaussian.encode(coder, y_np,
+                                 _to_host_nhwc(m.scales_from_z(z_hat)))
+            y_hat = torch.round(y)
+        elif self.kind == "meanscale":
+            scales, means = m.params_from_z(z_hat)
+            self.gaussian.encode(coder, y_np, _to_host_nhwc(scales),
+                                 _to_host_nhwc(means))
+            y_hat = torch.round(y - means) + means
+        else:
+            hyper = _to_host_nhwc(m.hyper_from_z(z_hat))
+            y_hat = self._from_host_nhwc(ar_encode(
+                y_np[0], hyper[0], self._ar_nets, self.gaussian, coder)[None])
+        return {"strings": [self._flush(), z_string],
+                "shape": tuple(z.shape[2:]), "x_hat": m.synthesize(y_hat)}
+
+    @torch.no_grad()
+    def decompress(self, strings, shape_hw):
+        m, coder = self.module, self.entropy_coder
+        if self.kind == "factorized":
+            coder.set_stream(strings[0])
+            y_hat = bottleneck_decode(coder, (1, *shape_hw, m.M),
+                                      self._medians, self._table)
+            return {"x_hat": m.synthesize(self._from_host_nhwc(y_hat))}
+
+        y_string, z_string = strings
+        coder.set_stream(z_string)
+        z_hat = self._from_host_nhwc(bottleneck_decode(
+            coder, (1, *shape_hw, m.N), self._medians, self._table))
+        coder.set_stream(y_string)
+        if self.kind == "scale":
+            y_hat = self.gaussian.decode(
+                coder, _to_host_nhwc(m.scales_from_z(z_hat)))
+        elif self.kind == "meanscale":
+            scales, means = m.params_from_z(z_hat)
+            y_hat = self.gaussian.decode(coder, _to_host_nhwc(scales),
+                                         _to_host_nhwc(means))
+        else:
+            hyper = _to_host_nhwc(m.hyper_from_z(z_hat))
+            y_shape = (shape_hw[0] * 4, shape_hw[1] * 4, m.M)
+            y_hat = ar_decode(y_shape, hyper[0], self._ar_nets,
+                              self.gaussian, coder)[None]
+        return {"x_hat": m.synthesize(self._from_host_nhwc(y_hat))}
+
+
+class DcvcGen1Runtime(_RuntimeBase):
+    """Runtime for DCVCNet (gen-1): hyper priors and pixel-AR latents.
+
+    Parity: DCVC/src/models/DCVC_net.py:234-420 compress / decompress with
+    four substreams (mv_z, mv_y, z, y). The AR loops run on the host by
+    wavefronts; their streams have one part (the decoder must meet the
+    symbols in the encoder's order).
+    """
+
+    y_distribution = "laplace"
+
+    def __init__(self, module, ec_thread=False, stream_part=1, device=None):
+        super().__init__(module, ec_thread, 1, device)
+        self._ar_nets = None
+
+    def _z_estimators(self):
+        return ["bitEstimator_z", "bitEstimator_z_mv"]
+
+    def update(self, force: bool = False):
+        self.stream_part = 1
+        super().update(force)
+        if self._ar_nets is None or force:
+            self._ar_nets = {w: extract_ar_nets(self.module, w)
+                             for w in ("mv", "y")}
+
+    @torch.no_grad()
+    def forward(self, referframe, input_image):
+        """Estimated-bits P-frame: ``{"recon_image", "bit", "bpp", ...}``."""
+        return self.module(self._tensor(referframe), self._tensor(input_image))
+
+    def _ar(self, which: str, y, hyper: np.ndarray) -> torch.Tensor:
+        """AR-encode latent ``y`` (NCHW) given its NHWC hyper parameters
+        into a fresh stream; its y_hat as the decoder gets it."""
+        self.entropy_coder.reset()
+        y_hat = ar_encode(_to_host_nhwc(y)[0], hyper[0], self._ar_nets[which],
+                          self.gaussian, self.entropy_coder)
+        return self._from_host_nhwc(y_hat[None])
+
+    @torch.no_grad()
+    def compress(self, referframe, input_image):
+        m = self.module
+        ref, x = self._tensor(referframe), self._tensor(input_image)
+        mv_feature, mv_z_hat, params_mv = m.encode_analysis(ref, x)
+        self.entropy_coder.reset()
+        self._encode_z("bitEstimator_z_mv", mv_z_hat)
+        mv_z_string = self._flush()
+        mv_y_hat = self._ar("mv", mv_feature, _to_host_nhwc(params_mv))
+        mv_y_string = self._flush()
+
+        context, temporal = m.motion_and_context(ref, mv_y_hat)
+        y, z_hat, hyper = m.residual_analysis(x, context)
+        self.entropy_coder.reset()
+        self._encode_z("bitEstimator_z", z_hat)
+        z_string = self._flush()
+        y_hat = self._ar("y", y, np.concatenate(
+            [_to_host_nhwc(temporal), _to_host_nhwc(hyper)], axis=-1))
+        y_string = self._flush()
+        return {"mv_z_string": mv_z_string, "mv_y_string": mv_y_string,
+                "z_string": z_string, "y_string": y_string,
+                "recon_image": m.synthesis(y_hat, context)}
+
+    @torch.no_grad()
+    def decompress(self, referframe, mv_y_string, mv_z_string, y_string,
+                   z_string, height, width):
+        m, coder = self.module, self.entropy_coder
+        ref = self._tensor(referframe)
+        zh, zw = get_downsampled_shape(height, width, 64)
+        # frames are padded to 64 for this generation, so the y latent is
+        # the hyper decoder's 4x upsample of z (not ceil(w / 16), which
+        # differs when the width is not a multiple of 64)
+        yh, yw = zh * 4, zw * 4
+        z_shape = (1, m.channel_N, zh, zw)
+
+        coder.set_stream(mv_z_string)
+        params_mv = m.mv_prior_decoder(
+            self._decode_z("bitEstimator_z_mv", z_shape))
+        coder.set_stream(mv_y_string)
+        mv_y_hat = ar_decode((yh, yw, m.channel_mv),
+                             _to_host_nhwc(params_mv)[0], self._ar_nets["mv"],
+                             self.gaussian, coder)
+        context, temporal = m.motion_and_context(
+            ref, self._from_host_nhwc(mv_y_hat[None]))
+
+        coder.set_stream(z_string)
+        hyper = m.prior_decoder(self._decode_z("bitEstimator_z", z_shape))
+        coder.set_stream(y_string)
+        y_hyper = np.concatenate([_to_host_nhwc(temporal),
+                                  _to_host_nhwc(hyper)], axis=-1)
+        y_hat = ar_decode((yh, yw, m.channel_M), y_hyper[0],
+                          self._ar_nets["y"], self.gaussian, coder)
+        return {"recon_image": m.synthesis(
+            self._from_host_nhwc(y_hat[None]), context)}
+
+
+class TcmVideoRuntime(_RuntimeBase):
+    """Runtime for DMCTcm (no spatial prior: one-shot latent coding).
+
+    Parity: DCVC-TCM/src/models/video_net_dmc.py:321-415 compress /
+    decompress; one bare payload in the order z_mv, mv_y, z, y (:321-341).
+    """
+
+    y_distribution = "laplace"
+
+    def __init__(self, module, ec_thread=False, stream_part=1, device=None):
+        super().__init__(module, ec_thread, stream_part, device)
+        # decoder-aligned coding indexes (_aligned_indexes): opt in, as in
+        # the JAX package
+        self.aligned_enc = os.environ.get("DCVC_TPU_ALIGNED_ENC") == "1"
+
+    def _z_estimators(self):
+        return ["bit_estimator_z", "bit_estimator_z_mv"]
+
+    @torch.no_grad()
+    def forward_one_frame(self, x, ref_frame, ref_feature):
+        """Estimated-bits P-frame: ``{"recon_image", "feature", "bit",
+        ...}``."""
+        return self.module(self._tensor(x), ref_frame, ref_feature)
+
+    def _indexes(self, scales) -> np.ndarray:
+        return _to_host_nhwc(self.gaussian.build_indexes(scales)).reshape(-1)
+
+    def _aligned_indexes(self, mv_z_hat, z_hat, mv_sym, ref_frame,
+                         ref_feature):
+        """Decoder-identical coding indexes of the mv_y and y planes: the
+        decoder's stages with the known mv symbols in place of rANS
+        (``dcvc_tpu/models/runtime.py:TcmVideoRuntime._aligned_indexes``).
+        The z planes and the symbols enter as fresh NCHW f32 tensors, as
+        the decoder receives them."""
+        m = self.module
+        mv_scales, mv_means = m.decode_mv_params(
+            self._from_host_nhwc(_to_host_nhwc(mv_z_hat)))
+        mv_shape = _to_host_nhwc(mv_scales).shape
+        mv_y_q = self._from_host_nhwc(mv_sym.reshape(mv_shape))
+        scales, _, _ = m.decode_motion_stage(
+            mv_y_q + mv_means, ref_frame, ref_feature,
+            self._from_host_nhwc(_to_host_nhwc(z_hat)))
+        return [self._indexes(mv_scales), self._indexes(scales)]
+
+    @torch.no_grad()
+    def compress(self, x, ref_frame, ref_feature):
+        out = self.module.compress_device(self._tensor(x), ref_frame,
+                                          ref_feature)
+        syms = [_symbols_nhwc(out["mv_y_q"]), _symbols_nhwc(out["y_q"])]
+        if self.aligned_enc:
+            idx = self._aligned_indexes(out["mv_z_hat"], out["z_hat"],
+                                        syms[0], ref_frame, ref_feature)
+        else:
+            idx = [self._indexes(out["mv_scales"]),
+                   self._indexes(out["scales"])]
+        self.entropy_coder.reset()
+        self._encode_z("bit_estimator_z_mv", out["mv_z_hat"])
+        self.gaussian.encode_with_indexes(self.entropy_coder, syms[0], idx[0])
+        self._encode_z("bit_estimator_z", out["z_hat"])
+        self.gaussian.encode_with_indexes(self.entropy_coder, syms[1], idx[1])
+        self.entropy_coder.flush()
+        return {"bit_stream": self.entropy_coder.get_encoded_stream(),
+                "x_hat": out["x_hat"], "feature": out["feature"]}
+
+    @torch.no_grad()
+    def decompress(self, ref_frame, ref_feature, string, height, width):
+        m = self.module
+        self.entropy_coder.set_stream(string)
+        zh, zw = get_downsampled_shape(height, width, 64)
+        z_shape = (1, m.channel_N, zh, zw)
+        mv_scales, mv_means = m.decode_mv_params(
+            self._decode_z("bit_estimator_z_mv", z_shape))
+        mv_y_hat = self._host_decode(mv_scales) + mv_means
+        z_hat = self._decode_z("bit_estimator_z", z_shape)
+        scales, means, contexts = m.decode_motion_stage(
+            mv_y_hat, ref_frame, ref_feature, z_hat)
+        x_hat, feature = m.decode_recon_stage(
+            self._host_decode(scales) + means, contexts)
+        return {"x_hat": x_hat, "feature": feature}
 
 
 class HemVideoRuntime(_RuntimeBase):

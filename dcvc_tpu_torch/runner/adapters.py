@@ -11,15 +11,20 @@
 The DC runtimes speak it already. The EVC / HEM intra runtime and the
 HEM / CANF P runtime take continuous q_scales: a q_index maps to one
 through the checkpoint's anchors (q_in_ckpt) or their 64-point
-log-interpolated fine table. TCM, gen-1 and the zoo wait for their
-generations (ROADMAP Queue 1 item 13).
+log-interpolated fine table. The zoo, TCM and gen-1 are per-rate models
+(q ignored); the zoo's and gen-1's substreams are packed into one payload
+(``utils/stream.pack_strings``).
 """
 
 from __future__ import annotations
 
+import torch
+
 from ..models.intra_dc import build_fine_q_tables
-from ..models.runtime import (DmcRuntime, EvcCodecRuntime, HemVideoRuntime,
-                              IntraDcRuntime)
+from ..models.runtime import (DcvcGen1Runtime, DmcRuntime, EvcCodecRuntime,
+                              HemVideoRuntime, IntraDcRuntime,
+                              IntraZooRuntime, TcmVideoRuntime)
+from ..utils.stream import pack_strings, unpack_strings
 
 
 def pad_for_model(model: str) -> int:
@@ -104,18 +109,76 @@ class HemPFrameAdapter(_Adapter):
                                   *self._qs(q_in_ckpt, q_index))
 
 
-def _not_ported(rt):
-    return NotImplementedError(
-        f"no adapter for {type(rt).__name__} yet (ROADMAP Queue 1 item 13, "
-        f"the other generations)")
+class ZooIntraAdapter(_Adapter):
+    """The CompressAI zoo (TCM / gen-1 I-frames): per-rate models, no q;
+    the latents' strings packed into one payload."""
+
+    def forward(self, x, q_in_ckpt, q_index):
+        return self.rt.forward(x)
+
+    def compress(self, x, q_in_ckpt, q_index):
+        comp = self.rt.compress(x)
+        return {"bit_stream": pack_strings(comp["strings"]),
+                "x_hat": comp["x_hat"]}
+
+    def decompress(self, stream, height, width, q_in_ckpt, q_index):
+        return self.rt.decompress(unpack_strings(stream),
+                                  self.rt.latent_shape(height, width))
+
+
+class TcmPFrameAdapter(_Adapter):
+    """DMCTcm: per-rate checkpoints (q ignored), the (frame, feature) DPB."""
+
+    def forward_one_frame(self, x, dpb, q_in_ckpt, q_index, frame_idx):
+        out = self.rt.forward_one_frame(x, dpb["ref_frame"],
+                                        dpb["ref_feature"])
+        out["dpb"] = {"ref_frame": torch.clamp(out["recon_image"], 0.0, 1.0),
+                      "ref_feature": out["feature"]}
+        return out
+
+    def compress(self, x, dpb, q_in_ckpt, q_index, frame_idx):
+        return self.rt.compress(x, dpb["ref_frame"], dpb["ref_feature"])
+
+    def decompress(self, dpb, stream, height, width, q_in_ckpt, q_index,
+                   frame_idx):
+        out = self.rt.decompress(dpb["ref_frame"], dpb["ref_feature"],
+                                 stream, height, width)
+        return {"dpb": {"ref_frame": out["x_hat"],
+                        "ref_feature": out["feature"]}}
+
+
+class Gen1PFrameAdapter(_Adapter):
+    """DCVCNet (gen-1): the ref_frame-only DPB; the mv_z / mv_y / z / y
+    substreams packed into the payload (DCVC/src/utils/stream_helper.py:
+    127-163)."""
+
+    def forward_one_frame(self, x, dpb, q_in_ckpt, q_index, frame_idx):
+        out = self.rt.forward(dpb["ref_frame"], x)
+        out["dpb"] = {"ref_frame": out["recon_image"]}
+        return out
+
+    def compress(self, x, dpb, q_in_ckpt, q_index, frame_idx):
+        comp = self.rt.compress(dpb["ref_frame"], x)
+        return {"bit_stream": pack_strings([
+            comp["mv_z_string"], comp["mv_y_string"], comp["z_string"],
+            comp["y_string"]])}
+
+    def decompress(self, dpb, stream, height, width, q_in_ckpt, q_index,
+                   frame_idx):
+        mv_z, mv_y, z, y = unpack_strings(stream)
+        out = self.rt.decompress(dpb["ref_frame"], mv_y, mv_z, y, z, height,
+                                 width)
+        return {"dpb": {"ref_frame": out["recon_image"]}}
 
 
 def adapt_i_runtime(rt):
     if isinstance(rt, IntraDcRuntime):
         return rt
+    if isinstance(rt, IntraZooRuntime):
+        return ZooIntraAdapter(rt)
     if isinstance(rt, EvcCodecRuntime):
         return QScaleIntraAdapter(rt)
-    raise _not_ported(rt)
+    raise TypeError(f"no adapter for {type(rt).__name__}")
 
 
 def adapt_p_runtime(rt):
@@ -123,4 +186,8 @@ def adapt_p_runtime(rt):
         return rt
     if isinstance(rt, HemVideoRuntime):
         return HemPFrameAdapter(rt)
-    raise _not_ported(rt)
+    if isinstance(rt, TcmVideoRuntime):
+        return TcmPFrameAdapter(rt)
+    if isinstance(rt, DcvcGen1Runtime):
+        return Gen1PFrameAdapter(rt)
+    raise TypeError(f"no adapter for {type(rt).__name__}")

@@ -9,16 +9,20 @@ results JSON ``{"per_image": {image: {rate_i: ...}}, "average": {rate_i:
     python -m dcvc_tpu_torch.tools.test_image --model evc_LL \\
         --img_folder imgs [--device cuda|cpu] [--write_stream 1] ...
 
-Models: the EVC grid ``evc_XY``, ``evc_scalable``, ``intra_hem`` and
-``intra_dc``; the zoo raises (ROADMAP Queue 1 item 13). Runs on the card unless ``--device
-cpu``; without a card it exits with the device message. Weights are seeded
-random unless ``--model_path`` names a published ``.pth`` / ``.pth.tar``
-or a JAX-package ``.npz``. Images are read without Pillow
-(``utils/png.py``) and edge-padded to a multiple of 64. Rate points: EVC
-and HEM models log-interpolate ``rate_num`` q_scales between the first and
-last anchor of the checkpoint's ``q_scale``, rounded to 1/100 for streams
+Models: the EVC grid ``evc_XY``, ``evc_scalable``, ``intra_hem``,
+``intra_dc`` and the CompressAI zoo (``bmshj2018-factorized``,
+``bmshj2018-hyperprior``, ``mbt2018-mean``, ``mbt2018``,
+``cheng2020-anchor``). Runs on the card unless ``--device cpu``; without a
+card it exits with the device message. Weights are seeded random unless
+``--model_path`` names a published ``.pth`` / ``.pth.tar`` or a
+JAX-package ``.npz``. Images are read without Pillow (``utils/png.py``) and
+edge-padded to a multiple of 64. Rate points: EVC and HEM models
+log-interpolate ``rate_num`` q_scales between the first and last anchor of
+the checkpoint's ``q_scale``, rounded to 1/100 for streams
 (``get_rounded_q``) and decoded as ``q_index / 100``; ``intra_dc`` takes
-``rate_num`` q_indexes of its 64-point fine table.
+``rate_num`` q_indexes of its 64-point fine table; a zoo model is one
+checkpoint per rate, so it codes one rate point, its latents' strings in
+``encode_i_strings``'s container.
 """
 
 from __future__ import annotations
@@ -48,10 +52,15 @@ def parse_args(argv=None):
 
 
 def _q_scales(rt, rate_num: int):
-    """Rate points: fine-table q_indexes (intra_dc) or log-interpolated
-    q_scale anchors (EVC, HEM)."""
-    from ..models.runtime import IntraDcRuntime
+    """Rate points: fine-table q_indexes (intra_dc), log-interpolated
+    q_scale anchors (EVC, HEM) or the zoo model's one rate (None)."""
+    from ..models.runtime import IntraDcRuntime, IntraZooRuntime
 
+    if isinstance(rt, IntraZooRuntime):
+        if rate_num > 1:
+            print(f"{type(rt.module).__name__} is a per-rate model; running "
+                  f"1 rate point")
+        return [None]
     if isinstance(rt, IntraDcRuntime):
         return ([int(round(v)) for v in np.linspace(0, 63, rate_num)]
                 if rate_num > 1 else [0])
@@ -69,10 +78,20 @@ def _code(rt, x, h, w, q, bin_path, write_stream: bool):
 
     is_dc = isinstance(rt, IntraDcRuntime)
     if not write_stream:
-        out = (rt.forward(x, q_in_ckpt=False, q_index=int(q)) if is_dc
-               else rt.forward(x, float(q)))
+        if q is None:
+            out = rt.forward(x)
+        elif is_dc:
+            out = rt.forward(x, q_in_ckpt=False, q_index=int(q))
+        else:
+            out = rt.forward(x, float(q))
         return float(out["bit"]), out["x_hat"], _clock(x)
-    if is_dc:
+    if q is None:  # a per-rate zoo model
+        comp = rt.compress(x)
+        stream.encode_i_strings(h, w, comp["strings"], bin_path)
+        t1 = _clock(x)
+        hh, ww, strings = stream.decode_i_strings(bin_path)
+        x_hat = rt.decompress(strings, rt.latent_shape(hh, ww))["x_hat"]
+    elif is_dc:
         comp = rt.compress(x, q_in_ckpt=False, q_index=int(q))
         stream.encode_i(h, w, False, int(q), comp["bit_stream"], bin_path)
         t1 = _clock(x)

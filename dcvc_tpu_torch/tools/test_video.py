@@ -10,8 +10,12 @@ table (rate_num up to 64).
     python -m dcvc_tpu_torch.tools.test_video --test_config cfg.json \\
         [--device cuda|cpu] [--write_stream 1] [--model_path_i I.pth] ...
 
-I-frame models: ``intra_dc``, the EVC grid ``evc_XY``, ``evc_scalable`` and
-``intra_hem``; P-frame models: ``dmc_dc``, ``dmc_hem`` and ``canfvc_dmc``.
+I-frame models: ``intra_dc``, the EVC grid ``evc_XY``, ``evc_scalable``,
+``intra_hem`` and the CompressAI zoo (``bmshj2018-factorized``,
+``bmshj2018-hyperprior``, ``mbt2018-mean``, ``mbt2018``,
+``cheng2020-anchor``); P-frame models: ``dmc_dc``, ``dmc_hem``,
+``canfvc_dmc``, ``dmc_tcm`` and ``dcvc_gen1``. A write-stream pair pads
+alike: ``intra_dc`` + ``dmc_dc`` pad to 16, every other pair to 64.
 Runs on the card unless ``--device cpu``; without a card it exits with the
 device message. Weights are seeded random unless ``--model_path_i`` /
 ``--model_path_p`` name a published ``.pth`` / ``.pth.tar`` or a JAX-package
@@ -68,7 +72,8 @@ def parse_args(argv=None):
                         "'block:Dh,Rv[,BH,BW[,base]]' explicitly")
     p.add_argument("--mc_warp", default="auto",
                    help="motion-compensation warp mode (warpframe + context "
-                        "warps; dmc_dc, dmc_hem): same grammar as --od_warp")
+                        "warps; dmc_dc, dmc_hem, dmc_tcm, dcvc_gen1): same "
+                        "grammar as --od_warp")
     p.add_argument("--me_warp", default="auto",
                    help="SPyNet pyramid warp mode (dmc_dc): same grammar as "
                         "--od_warp")
@@ -113,20 +118,21 @@ def _build_runtimes(args, device):
             return default if flag == "auto" else flag
 
         # each P model takes the warp sites it has, as the JAX CLI passes
-        # them (tools/test_video.py:128-138): DMC all three, DMCHem the mc
-        # warps, CANF none (its warps are exact)
+        # them (tools/test_video.py:128-138): DMC all three, DMCHem, DMCTcm
+        # and DCVCNet the mc warps, CANF none (its warps are exact)
         p_kwargs = {}
         if args.p_frame_model == "dmc_dc":
             p_kwargs.update(od_warp_mode=mode(args.od_warp, od_d),
                             me_warp_mode=mode(args.me_warp, me_d))
-        if args.p_frame_model in ("dmc_dc", "dmc_hem"):
+        if args.p_frame_model in ("dmc_dc", "dmc_hem", "dmc_tcm",
+                                  "dcvc_gen1"):
             p_kwargs["mc_warp_mode"] = mode(args.mc_warp, mc_d)
         _, p_rt = build(args.p_frame_model, device=device,
                         state_dict=weights(args.model_path_p,
                                            args.p_frame_model), **p_kwargs)
         p_rt.ec_thread, p_rt.stream_part = (bool(args.ec_thread),
                                             args.stream_part_p)
-        if args.aligned_enc is not None:
+        if args.aligned_enc is not None and hasattr(p_rt, "aligned_enc"):
             p_rt.aligned_enc = bool(args.aligned_enc)
         p_rt.update(force=True)
         p_rt = adapt_p_runtime(p_rt)

@@ -1,9 +1,11 @@
 """Weights across: the JAX package's param trees -> port ``state_dict``s.
 
 The exact inverse of ``dcvc_tpu/utils/port_dc.py``'s ``convert_intra_dc``,
-``convert_dmc``, ``convert_evc`` and ``convert_evc_scalable`` and of
+``convert_dmc``, ``convert_evc`` and ``convert_evc_scalable``, of
 ``dcvc_tpu/utils/port_hem.py``'s ``convert_intra_hem``, ``convert_dmc_hem``
-and ``convert_canf_dmc``: flax HWIO kernels become torch OIHW, Dense
+and ``convert_canf_dmc``, of ``port_tcm.convert_dmc_tcm``,
+``port_gen1.convert_dcvc_gen1`` and ``port_zoo.convert_zoo`` (its five
+kinds): flax HWIO kernels become torch OIHW, Dense
 kernels are transposed, transposed-conv kernels are flipped back, and
 OffsetDiversity's block-diagonal dense fusion becomes the reference's
 ``groups=16`` 1x1 conv. The input is a nested dict
@@ -135,6 +137,19 @@ class FlaxToTorch:
         self.dcb(_key(t, "up_conv3"), *f, "up_conv3", two=two)
         self.subpel(_key(t, "up2"), *f, "up2")
         self.dcb(_key(t, "up_conv2"), *f, "up_conv2", two=two)
+
+    def gdn(self, t, *f):
+        self.param(f"{t}.beta", (*f, "beta"))
+        self.param(f"{t}.gamma", (*f, "gamma"))
+
+    def bottleneck(self, t, *f):
+        """EntropyBottleneck: ``_matrices`` / ``_biases`` / ``_factors``."""
+        self.param(f"{t}.quantiles", (*f, "quantiles"))
+        for i in range(5):
+            self.param(f"{t}._matrices.{i}", (*f, f"matrix{i}"))
+            self.param(f"{t}._biases.{i}", (*f, f"bias{i}"))
+            if i < 4:
+                self.param(f"{t}._factors.{i}", (*f, f"factor{i}"))
 
     def bit_estimator(self, t, *f):
         for i in range(4):
@@ -281,10 +296,10 @@ def dmc_from_jax(params) -> dict:
     return m.finish()
 
 
-def _spynet(m: FlaxToTorch):
+def _spynet(m: FlaxToTorch, t: str = "optic_flow"):
     for lvl in range(4):
         for j in range(1, 6):
-            m.conv(f"optic_flow.moduleBasic.{lvl}.conv{j}",
+            m.conv(f"{t}.moduleBasic.{lvl}.conv{j}",
                    "optic_flow", f"basic{lvl}", f"conv{j}")
 
 
@@ -522,4 +537,178 @@ def canf_dmc_from_jax(params) -> dict:
         m.conv(f"DQ.resblock.{i}.2", "dq", f"res{i}_c2")
     m.conv("DQ.conv2", "dq", "conv2")
     m.conv("DQ.conv3", "dq", "conv3")
+    return m.finish()
+
+
+# ---- the TCM generation, gen-1 DCVC and the zoo (port_tcm.py,
+# port_gen1.py, port_zoo.py) ----
+
+
+def dmc_tcm_from_jax(params) -> dict:
+    """DMCTcm flax params -> port (= reference DCVC-TCM) state_dict."""
+    m = FlaxToTorch(params)
+    _spynet(m)
+    for i, base in enumerate((0, 4, 8)):
+        m.conv(f"mv_encoder.{base}", "mv_encoder", f"down{i}")
+        m.gdn(f"mv_encoder.{base + 1}", "mv_encoder", f"gdn{i}")
+        m.resblock(f"mv_encoder.{base + 2}", "mv_encoder", f"res{i}")
+    m.conv("mv_encoder.12", "mv_encoder", "down3")
+    dec = "mv_decoder"
+    for idx, name in ((0, "up0"), (4, "up1"), (6, "up2"), (8, "up3")):
+        m.deconv(f"{dec}.{idx}", dec, name)
+    m.resblock(f"{dec}.2", dec, "res0")
+    for idx, name in ((3, "igdn0"), (5, "igdn1"), (7, "igdn2")):
+        m.gdn(f"{dec}.{idx}", dec, name)
+    for t in ("mv_prior_encoder", "contextual_hyper_prior_encoder"):
+        for i, idx in enumerate((0, 2, 4)):
+            m.conv(f"{t}.{idx}", t, f"c{i + 1}")
+    for t in ("mv_prior_decoder", "contextual_hyper_prior_decoder"):
+        for i, idx in enumerate((0, 2, 4)):
+            m.deconv(f"{t}.{idx}", t, f"d{i + 1}")
+    m.conv("feature_adaptor_I", "feature_adaptor_I")
+    m.conv("feature_adaptor_P", "feature_adaptor_P")
+    _feature_pyramid(m)
+    enc = "contextual_encoder"
+    for i in (1, 2, 3):
+        m.conv(f"{enc}.conv{i}", enc, f"conv{i}")
+        m.gdn(f"{enc}.gdn{i}", enc, f"gdn{i}")
+    m.conv(f"{enc}.conv4", enc, "conv4")
+    m.resblock(f"{enc}.res1", enc, "res1")
+    m.resblock(f"{enc}.res2", enc, "res2")
+    dec = "contextual_decoder"
+    for i in (1, 2, 3, 4):
+        m.subpel(f"{dec}.up{i}", dec, f"up{i}")
+    for i in (1, 2, 3):
+        m.gdn(f"{dec}.gdn{i}", dec, f"igdn{i}")
+    m.resblock(f"{dec}.res1", dec, "res1")
+    m.resblock(f"{dec}.res2", dec, "res2")
+    tpe = "temporal_prior_encoder"
+    for i in (1, 2, 3):
+        m.conv(f"{tpe}.conv{i}", tpe, f"conv{i}")
+        m.gdn(f"{tpe}.gdn{i}", tpe, f"gdn{i}")
+    m.conv(f"{tpe}.conv4", tpe, "conv4")
+    for i, idx in enumerate((0, 2, 4)):
+        m.conv(f"contextual_entropy_parameter.{idx}",
+               "contextual_entropy_parameter", f"c{i + 1}")
+    rg = "recon_generation_net"
+    m.conv(f"{rg}.feature_conv.0", rg, "conv")
+    m.resblock(f"{rg}.feature_conv.1", rg, "res1")
+    m.resblock(f"{rg}.feature_conv.2", rg, "res2")
+    m.conv(f"{rg}.recon_conv", rg, "recon_conv")
+    m.bit_estimator("bit_estimator_z", "bit_estimator_z")
+    m.bit_estimator("bit_estimator_z_mv", "bit_estimator_z_mv")
+    return m.finish()
+
+
+def _seq(m: FlaxToTorch, t: str, leaf, ours: str, indexes):
+    """Sequential children ``t.{idx}`` <- flax ``{ours}_{i}``."""
+    for i, idx in enumerate(indexes):
+        leaf(f"{t}.{idx}", f"{ours}_{i}")
+
+
+def _res_lrelu(m: FlaxToTorch, t: str, *f):
+    """ResBlock_LeakyReLU_0_Point_1: ``conv.0`` / ``conv.2``."""
+    m.conv(f"{t}.conv.0", *f, "conv1")
+    m.conv(f"{t}.conv.2", *f, "conv2")
+
+
+def dcvc_gen1_from_jax(params) -> dict:
+    """DCVCNet flax params -> port (= reference DCVC_net) state_dict."""
+    m = FlaxToTorch(params)
+    _spynet(m, "opticFlow")
+    m.conv("feature_extract.0", "feature_extract_conv")
+    m.resblock("feature_extract.1", "feature_extract_res")
+    m.resblock("context_refine.0", "context_refine_res")
+    m.conv("context_refine.1", "context_refine_conv")
+    _seq(m, "mvEncoder", m.conv, "mv_encoder_convs", (0, 2, 4, 6))
+    _seq(m, "mvEncoder", m.gdn, "mv_encoder_gdns", (1, 3, 5))
+    _seq(m, "mvDecoder_part1", m.deconv, "mv_decoder_deconvs", (0, 2, 4, 6))
+    _seq(m, "mvDecoder_part1", m.gdn, "mv_decoder_igdns", (1, 3, 5))
+    _seq(m, "mvDecoder_part2", m.conv, "mv_refine_convs", range(0, 13, 2))
+    ce = "contextualEncoder"
+    _seq(m, ce, m.conv, "contextual_encoder_convs", (0, 3, 6, 8))
+    _seq(m, ce, m.gdn, "contextual_encoder_gdns", (1, 4, 7))
+    _seq(m, ce, lambda t, f: _res_lrelu(m, t, f), "contextual_encoder_res",
+         (2, 5))
+    cd = "contextualDecoder_part1"
+    _seq(m, cd, m.subpel, "contextual_decoder1_subpels", (0, 2, 5, 8))
+    _seq(m, cd, m.gdn, "contextual_decoder1_igdns", (1, 3, 6))
+    _seq(m, cd, lambda t, f: _res_lrelu(m, t, f), "contextual_decoder1_res",
+         (4, 7))
+    m.conv("contextualDecoder_part2.0", "contextual_decoder2_conv1")
+    m.resblock("contextualDecoder_part2.1", "contextual_decoder2_res_0")
+    m.resblock("contextualDecoder_part2.2", "contextual_decoder2_res_1")
+    m.conv("contextualDecoder_part2.3", "contextual_decoder2_conv2")
+    _seq(m, "priorEncoder", m.conv, "prior_encoder_convs", (0, 2, 4))
+    _seq(m, "mvpriorEncoder", m.conv, "mv_prior_encoder_convs", (0, 2, 4))
+    _seq(m, "priorDecoder", m.deconv, "prior_decoder_deconvs", (0, 2, 4))
+    _seq(m, "mvpriorDecoder", m.deconv, "mv_prior_decoder_deconvs", (0, 2, 4))
+    tpe = "temporalPriorEncoder"
+    _seq(m, tpe, m.conv, "temporal_prior_convs", (0, 2, 4, 6))
+    _seq(m, tpe, m.gdn, "temporal_prior_gdns", (1, 3, 5))
+    m.conv("auto_regressive", "auto_regressive")
+    m.conv("auto_regressive_mv", "auto_regressive_mv")
+    for t in ("entropy_parameters", "entropy_parameters_mv"):
+        for i, idx in enumerate((0, 2, 4)):
+            m.conv(f"{t}.{idx}", t, f"c{i + 1}")
+    m.bit_estimator("bitEstimator_z", "bit_estimator_z")
+    m.bit_estimator("bitEstimator_z_mv", "bit_estimator_z_mv")
+    return m.finish()
+
+
+# registry name -> port_zoo.convert_zoo's kind
+ZOO_KINDS = {"bmshj2018-factorized": "factorized",
+             "bmshj2018-hyperprior": "scale", "mbt2018-mean": "meanscale",
+             "mbt2018": "joint", "cheng2020-anchor": "cheng2020"}
+
+
+def _ar_head(m: FlaxToTorch):
+    m.conv("context_prediction", "context_prediction")
+    for i, idx in enumerate((0, 2, 4)):
+        m.conv(f"entropy_parameters.{idx}", "entropy_parameters", f"c{i + 1}")
+
+
+def zoo_from_jax(params, kind: str) -> dict:
+    """A zoo model's flax params -> port (= reference CompressAI)
+    state_dict; ``kind`` as ``port_zoo.convert_zoo`` takes it (the values
+    of ``ZOO_KINDS``)."""
+    m = FlaxToTorch(params)
+    m.bottleneck("entropy_bottleneck", "entropy_bottleneck")
+    if kind in ("factorized", "scale", "meanscale", "joint"):
+        for i, idx in enumerate((0, 2, 4, 6)):
+            m.conv(f"g_a.{idx}", "g_a", f"conv{i}")
+            m.deconv(f"g_s.{idx}", "g_s", f"deconv{i}")
+        for i, idx in enumerate((1, 3, 5)):
+            m.gdn(f"g_a.{idx}", "g_a", f"gdn{i}")
+            m.gdn(f"g_s.{idx}", "g_s", f"igdn{i}")
+    if kind in ("scale", "meanscale", "joint"):
+        _seq(m, "h_a", m.conv, "h_a_convs", (0, 2, 4))
+        m.deconv("h_s.0", "h_s_deconvs_0")
+        m.deconv("h_s.2", "h_s_deconvs_1")
+        m.conv("h_s.4", "h_s_deconvs_2")
+    if kind == "joint":
+        _ar_head(m)
+    if kind == "cheng2020":
+        for i in range(6):
+            t, f = f"g_a.{i}", f"g_a_blocks_{i}"
+            m.resblock(t, f)
+            if i % 2 == 0:
+                m.gdn(f"{t}.gdn", f, "gdn")
+                m.conv(f"{t}.downsample", f, "downsample")
+        m.conv("g_a.6", "g_a_out")
+        _seq(m, "h_a", m.conv, "h_a_convs", (0, 2, 4, 6, 8))
+        m.conv("h_s.0", "h_s_conv1")
+        m.subpel("h_s.2", "h_s_up1")
+        m.conv("h_s.4", "h_s_conv2")
+        m.subpel("h_s.6", "h_s_up2")
+        m.conv("h_s.8", "h_s_conv3")
+        for i in range(7):
+            t, f = f"g_s.{i}", f"g_s_blocks_{i}"
+            if i % 2 == 0:
+                m.resblock(t, f)
+            else:
+                m.rbu(t, f)
+                m.gdn(f"{t}.igdn", f, "igdn")
+        m.subpel("g_s.7", "g_s_out")
+        _ar_head(m)
     return m.finish()

@@ -1,11 +1,13 @@
-"""Bitstream containers of the DC and EVC write-stream paths, in memory
-and as ``.bin`` files.
+"""Bitstream containers of the write-stream paths, in memory and as
+``.bin`` files.
 
 The port's own copy of ``dcvc_tpu/utils/stream.py``'s DC containers
 (parity target: DCVC-DC/src/utils/stream_helper.py:94-139, I/P headers with
 a q_in_ckpt flag and a 6-bit q_index), its HEM/EVC I container (a rounded-q
-ushort in the header, ``encode_i_ushort_q``) and ``get_rounded_q``
-(DCVC-HEM stream_helper.py:41-45). Byte-identical to the JAX package's
+ushort in the header, ``encode_i_ushort_q``), ``get_rounded_q``
+(DCVC-HEM stream_helper.py:41-45) and the gen-1 multi-substream
+containers (``pack_strings``, ``encode_i_strings``; DCVC/src/utils/
+stream_helper.py:108-163). Byte-identical to the JAX package's
 containers.
 """
 
@@ -98,3 +100,47 @@ def encode_i_ushort_q(height, width, q_index, bit_stream, output):
 
 def decode_i_ushort_q(inputpath):
     return unpack_i_ushort_q(Path(inputpath).read_bytes())
+
+
+# -- gen-1 style: N length-prefixed substreams ------------------------------
+
+def pack_strings(strings) -> bytes:
+    """Length-prefix N substreams into one payload (gen-1 P-frames carry
+    mv_z / mv_y / z / y apart, DCVC/src/utils/stream_helper.py:127-146)."""
+    out = [struct.pack(">B", len(strings))]
+    for s in strings:
+        out.append(struct.pack(">I", len(s)))
+        out.append(s)
+    return b"".join(out)
+
+
+def unpack_strings(payload: bytes) -> list:
+    if len(payload) < 1:
+        raise ValueError("empty substream container")
+    n = payload[0]
+    strings, off = [], 1
+    for i in range(n):
+        if off + 4 > len(payload):
+            raise ValueError(f"corrupt substream container: truncated length "
+                             f"field for part {i}")
+        length = struct.unpack(">I", payload[off:off + 4])[0]
+        off += 4
+        if off + length > len(payload):
+            raise ValueError(f"corrupt substream container: part {i} wants "
+                             f"{length} bytes, {len(payload) - off} left")
+        strings.append(payload[off:off + length])
+        off += length
+    return strings
+
+
+def encode_i_strings(height, width, strings, output):
+    """The zoo's I-frame file: h, w and its latents' strings, each with its
+    length."""
+    Path(output).write_bytes(struct.pack(">2I", height, width)
+                             + pack_strings(strings))
+
+
+def decode_i_strings(inputpath):
+    data = Path(inputpath).read_bytes()
+    height, width = struct.unpack(">2I", data[:8])
+    return height, width, unpack_strings(data[8:])

@@ -27,7 +27,9 @@ and intra period), from weights written once by the port:
     JAX runner's within one code value. The image CLI's ``intra_hem``
     branch codes the sequence's first frame at the two rates its q_scale
     anchors give, on the same JAX ``EvcCodecRuntime`` (one JAX program at
-    that shape for both cases).
+    that shape for both cases);
+  * a zoo I model (``mbt2018-mean``) + ``dmc_tcm`` at full width from port
+    ``.pth`` files (``port_zoo``, ``port_tcm``) on the same PNG sequence.
 """
 
 import json
@@ -155,24 +157,24 @@ def test_cli_pth_in_process_codes_the_same_bytes(case):
 
 
 def test_cli_refuses_what_is_not_ported(case, capsys):
+    """What the CLI still refuses: a worker pool, a write-stream pair of
+    two padding generations, an unknown model. (The zoo and TCM refusals
+    it once checked are gone: those models code, in
+    ``test_cli_zoo_tcm_pair_writes_the_jax_streams``.)"""
     d = case["dir"]
     base = ["--device", "cpu", "--test_config", str(d / "cfg.json"),
             "--rate_num", "1", "--q_indexes", "0", "--force_frame_num", "1",
             "--output_path", str(d / "x.json")]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        cli.main(base + ["--i_frame_model", "bmshj2018-factorized",
-                         "--force_intra"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        cli.main(base + ["--i_frame_model", "intra_hem",
-                         "--p_frame_model", "dmc_tcm"])
     with pytest.raises(SystemExit, match="worker_num"):
         cli.main(base + ["--worker_num", "2"])
     with pytest.raises(SystemExit, match="padding generation"):
         cli.main(base + ["--p_frame_model", "dmc_hem", "--write_stream", "1"])
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(SystemExit, match="padding generation"):
+        cli.main(base + ["--p_frame_model", "dmc_tcm", "--write_stream", "1"])
+    with pytest.raises(KeyError):
         from dcvc_tpu_torch.utils.checkpoint import load_state_dict
 
-        load_state_dict(str(d / "i.pth"), "dmc_tcm")
+        load_state_dict(str(d / "i.pth"), "no_such_model")
     with pytest.raises(KeyError):
         from dcvc_tpu_torch.models.registry import build
 
@@ -301,3 +303,44 @@ def test_image_cli_intra_hem_writes_the_jax_runtimes_bins(hem):
     # the anchors [1.541 .. 0.5] give two rates
     assert bins["f.png_0"] != bins["f.png_1"]
     assert bins == _jax_bins(d, irt, 2, sizes)
+
+
+def test_cli_zoo_tcm_pair_writes_the_jax_streams(hem):
+    """A zoo I-frame model (``mbt2018-mean``) + ``dmc_tcm`` at full width,
+    from port ``.pth`` files that the JAX package loads with its own
+    converters (``load_params``: ``port_zoo``, ``port_tcm``), on the HEM
+    case's 2-frame PNG sequence: the CLI writes the JAX CLI's ``.bin``
+    files (the zoo's packed substreams, TCM's bare payload) byte for byte.
+    Each runner decodes the streams it wrote, so each package decodes the
+    other's bytes."""
+    from dcvc_tpu.models.intra_zoo import MeanScaleHyperprior
+    from dcvc_tpu.models.runtime import IntraZooRuntime as JIntraZooRuntime
+    from dcvc_tpu.models.runtime import TcmVideoRuntime as JTcmVideoRuntime
+    from dcvc_tpu.models.video_tcm import DMCTcm as JDMCTcm
+    from dcvc_tpu_torch.models.intra_zoo import build_zoo
+    from dcvc_tpu_torch.models.video_tcm import build_dmc_tcm
+
+    d, cfg, _, _ = hem
+    torch.save(build_zoo("mbt2018-mean", seed=11, device="cpu").state_dict(),
+               d / "zoo_i.pth")
+    torch.save(build_dmc_tcm(seed=12, device="cpu").state_dict(),
+               d / "tcm_p.pth")
+    irt = JIntraZooRuntime(MeanScaleHyperprior(), load_params(
+        str(d / "zoo_i.pth"), model="mbt2018-mean"))
+    prt = JTcmVideoRuntime(JDMCTcm(), load_params(str(d / "tcm_p.pth"),
+                                                  model="dmc_tcm"))
+    irt.update(force=True)
+    prt.update(force=True)
+    jbins = _jax_run(d, cfg, "jax_tcm", irt, prt, 64, 32)
+    res = cli.main(["--device", "cpu", "--test_config", str(d / "cfg.json"),
+                    "--i_frame_model", "mbt2018-mean", "--p_frame_model",
+                    "dmc_tcm", "--model_path_i", str(d / "zoo_i.pth"),
+                    "--model_path_p", str(d / "tcm_p.pth"), "--write_stream",
+                    "1", "--rate_num", "1", "--q_indexes", str(Q),
+                    "--force_frame_num", str(FRAMES), "--stream_path",
+                    str(d / "port_tcm"), "--output_path",
+                    str(d / "port_tcm.json")])
+    assert [Path(d, "port_tcm", f"s2_{i}.bin").read_bytes()
+            for i in range(FRAMES)] == jbins
+    assert all(len(b) > 100 for b in jbins)
+    assert res["s2"]["rate_0"]["frame_num"] == FRAMES

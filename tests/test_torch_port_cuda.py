@@ -232,6 +232,96 @@ def test_kernel_matches_plain_at_hem_mc_shape(cuda):
     plain = bw.block_warp_plain_nchw(im, flow, 4, 4, 64, 128, "median4")
     torch.testing.assert_close(out, plain, atol=0, rtol=0)
 
+@pytest.mark.parametrize("name", ["bmshj2018-hyperprior", "mbt2018"])
+def test_zoo_roundtrip_on_card(cuda, name):
+    """A one-shot and a wavefront-AR zoo model at narrow widths on
+    128x192: the decoder's recon equals the encoder's; no kernel."""
+    from dcvc_tpu_torch.models.intra_zoo import build_zoo
+    from dcvc_tpu_torch.models.runtime import IntraZooRuntime
+
+    rt = IntraZooRuntime(build_zoo(name, seed=5, N=32, M=48))
+    rt.update()
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.rand(1, 3, 128, 192, generator=g, device=cuda) * 6 - 2.5
+    before = bw.block_warp_nchw.launches
+    comp = rt.compress(x)
+    dec = rt.decompress(comp["strings"], rt.latent_shape(128, 192))
+    assert bw.block_warp_nchw.launches == before
+    assert all(len(s) > 0 for s in comp["strings"])
+    assert torch.equal(comp["x_hat"], dec["x_hat"])
+
+
+def _p_roundtrips(cuda, prt, code, per_frame):
+    """Two P-frames through ``code(x, enc_dpb, dec_dpb) -> (enc, dec
+    recon)``, exact mc then the block mc: K1 launches 0, then
+    ``per_frame``; recon gap <= 1e-4."""
+    from dcvc_tpu_torch.ops.warp import RD_GATED_BLOCK_MODE
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    ref = torch.rand(1, 3, 128, 192, generator=g, device=cuda)
+    x = torch.roll(ref, 3, 3) * 3 - 1
+    for mode, launches in ((None, 0), (RD_GATED_BLOCK_MODE, per_frame)):
+        prt.module.mc_warp_mode = mode
+        before = bw.block_warp_nchw.launches
+        enc, dec = code(x, ref)
+        assert bw.block_warp_nchw.launches == before + launches
+        assert (enc - dec).abs().max().item() <= 1e-4, mode
+
+
+def test_tcm_roundtrip_on_card(cuda):
+    """dmc_tcm at narrow widths: K1 4 + 4 under the block mc."""
+    from dcvc_tpu_torch.models.runtime import TcmVideoRuntime
+    from dcvc_tpu_torch.models.video_tcm import build_dmc_tcm
+
+    prt = TcmVideoRuntime(build_dmc_tcm(seed=8, channel_mv=16, channel_N=16,
+                                        channel_M=24))
+    prt.update()
+
+    def code(x, ref):
+        c = prt.compress(x, ref, None)
+        d = prt.decompress(ref, None, c["bit_stream"], 128, 192)
+        assert (c["feature"] - d["feature"]).abs().max().item() <= 1e-4
+        return c["x_hat"], d["x_hat"]
+
+    _p_roundtrips(cuda, prt, code, 8)
+
+
+def test_gen1_roundtrip_on_card(cuda):
+    """dcvc_gen1 at narrow widths (AR mv and y on the host): K1 1 + 1
+    under the block mc."""
+    from dcvc_tpu_torch.models.runtime import DcvcGen1Runtime
+    from dcvc_tpu_torch.models.video_dcvc import build_dcvc_gen1
+
+    prt = DcvcGen1Runtime(build_dcvc_gen1(seed=9, channel_mv=16,
+                                          channel_N=16, channel_M=24))
+    prt.update()
+
+    def code(x, ref):
+        c = prt.compress(ref, x)
+        d = prt.decompress(ref, c["mv_y_string"], c["mv_z_string"],
+                           c["y_string"], c["z_string"], 128, 192)
+        return c["recon_image"], d["recon_image"]
+
+    _p_roundtrips(cuda, prt, code, 2)
+
+
+def test_kernel_matches_plain_at_gen1_mc_shape(cuda):
+    """K1 on gen-1's 1080p mc shape, one 64-channel full-resolution map."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    im = torch.rand(1, 64, 1088, 1920, generator=g, device=cuda)
+    yy = torch.linspace(0, 1, 1088, device=cuda).view(1, 1088, 1)
+    xx = torch.linspace(0, 1, 1920, device=cuda).view(1, 1, 1920)
+    flow = torch.stack([6.0 * torch.sin(3.0 * yy + 2.0 * xx) - 2.0,
+                        4.0 * torch.cos(2.0 * xx - yy)], 1)
+    flow = flow + 1.5 * torch.randn(1, 2, 1088, 1920, generator=g, device=cuda)
+    before = bw.block_warp_nchw.launches
+    out = bw.block_warp_nchw(im, flow, 4, 4, 64, 128, "median4")
+    torch.cuda.synchronize()
+    assert bw.block_warp_nchw.launches == before + 1
+    plain = bw.block_warp_plain_nchw(im, flow, 4, 4, 64, 128, "median4")
+    torch.testing.assert_close(out, plain, atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("rows_per_step", [1, 8, 16])
 @pytest.mark.parametrize("H,Wp,C,A", [
     (720, 1408, 16, 4),    # the probe's shape: bulk copies, 7 chunks/band

@@ -5,9 +5,8 @@
   fresh interpreter.
 * Entry points run on the card unless asked for the CPU: without CUDA and
   without device="cpu" they raise.
-* The runner, the video and image CLIs and chip_smoke.py import without
-  Pillow (the machine with the card has none; PNGs are read by
-  utils/png.py).
+* Every module of dcvc_tpu_torch and chip_smoke.py imports without Pillow
+  (the machine with the card has none; PNGs are read by utils/png.py).
 """
 
 import ast
@@ -49,9 +48,8 @@ def test_source_imports_no_jax(path):
 @pytest.fixture(scope="module")
 def fresh_imports():
     """One fresh interpreter for both import checks (it costs seconds to
-    start with torch): it first imports the runner, the CLIs and
-    chip_smoke.py and lists the PIL modules then loaded, then imports every
-    module of the package and lists the JAX ones."""
+    start with torch): it imports every module of the package and
+    chip_smoke.py, and lists the PIL and the JAX modules then loaded."""
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
             for p in PKG.rglob("*.py")]
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m for m in mods]
@@ -60,14 +58,10 @@ def fresh_imports():
         "def loaded(names):\n"
         "    return [m for m in sys.modules if any(\n"
         "        m == f or m.startswith(f + '.') for f in names)]\n"
-        "for m in ['dcvc_tpu_torch.runner.video', "
-        "'dcvc_tpu_torch.tools.test_video', "
-        "'dcvc_tpu_torch.tools.test_image', 'chip_smoke']:\n"
-        "    importlib.import_module(m)\n"
-        "pil = loaded(['PIL'])\n"
         f"for m in {sorted(mods) + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
-        f"print(json.dumps({{'pil': pil, 'jax': loaded({FORBIDDEN!r}), "
+        f"print(json.dumps({{'pil': loaded(['PIL']), "
+        f"'jax': loaded({FORBIDDEN!r}), "
         "'modules': len(sys.modules)}))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -86,9 +80,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from dcvc_tpu_torch.models.intra_hem import build_intra_hem
     from dcvc_tpu_torch.models.runtime import (DmcRuntime, HemVideoRuntime,
                                                IntraDcRuntime)
+    from dcvc_tpu_torch.models.intra_zoo import build_zoo
+    from dcvc_tpu_torch.models.runtime import (DcvcGen1Runtime,
+                                               IntraZooRuntime,
+                                               TcmVideoRuntime)
     from dcvc_tpu_torch.models.video_canf import build_canf
     from dcvc_tpu_torch.models.video_dc import build_dmc
+    from dcvc_tpu_torch.models.video_dcvc import build_dcvc_gen1
     from dcvc_tpu_torch.models.video_hem import build_dmc_hem
+    from dcvc_tpu_torch.models.video_tcm import build_dmc_tcm
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -102,12 +102,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     module = build_dmc(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         DmcRuntime(module)
-    for builder in (build_intra_hem, build_dmc_hem, build_canf):
+    for builder in (build_intra_hem, build_dmc_hem, build_canf,
+                    build_dmc_tcm, build_dcvc_gen1,
+                    lambda: build_zoo("bmshj2018-factorized")):
         with pytest.raises(RuntimeError, match="CUDA"):
             builder()
-    with pytest.raises(RuntimeError, match="CUDA"):
-        HemVideoRuntime(build_dmc_hem(device="cpu", channel_mv=8,
-                                      channel_N=8, channel_M=8))
+    small = {"channel_mv": 8, "channel_N": 8, "channel_M": 8}
+    for runtime, module in (
+            (HemVideoRuntime, build_dmc_hem(device="cpu", **small)),
+            (TcmVideoRuntime, build_dmc_tcm(device="cpu", **small)),
+            (DcvcGen1Runtime, build_dcvc_gen1(device="cpu", **small)),
+            (IntraZooRuntime, build_zoo("mbt2018", device="cpu", N=8, M=8))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            runtime(module)
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -125,7 +132,8 @@ def test_registry_and_cli_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         registry.build("dmc_dc")
     for name in ("evc_LL", "evc_scalable", "intra_hem", "dmc_hem",
-                 "canfvc_dmc"):
+                 "canfvc_dmc", "bmshj2018-factorized", "cheng2020-anchor",
+                 "dmc_tcm", "dcvc_gen1"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             registry.build(name)
     with pytest.raises(SystemExit, match="device='cpu'"):

@@ -9,7 +9,9 @@ either file, must write the ``.bin`` files that the JAX
 ``EvcCodecRuntime`` writes with ``encode_i_ushort_q`` at the CLI's q
 values, byte for byte, and a results JSON with the JAX CLI's nesting and
 keys. The ``intra_dc`` branch must write what the port's
-``IntraDcRuntime`` and ``encode_i`` write. (The ``intra_hem`` branch is
+``IntraDcRuntime`` and ``encode_i`` write; the zoo branch
+(``bmshj2018-factorized``, ``mbt2018``, full width, one rate) what the JAX
+``IntraZooRuntime`` and ``encode_i_strings`` write. (The ``intra_hem`` branch is
 tests/test_torch_port_cli.py's, with these helpers, on the JAX runtime
 that its video case builds.)
 """
@@ -22,13 +24,16 @@ import pytest
 import torch
 from PIL import Image
 
+from dcvc_tpu.models import intra_zoo as jzoo
 from dcvc_tpu.models.evc import make_evc as j_make_evc
 from dcvc_tpu.models.runtime import EvcCodecRuntime as JEvcCodecRuntime
+from dcvc_tpu.models.runtime import IntraZooRuntime as JIntraZooRuntime
 from dcvc_tpu.ops.warp import get_padding_size
 from dcvc_tpu.utils import port_dc
 from dcvc_tpu.utils import stream as jstream
-from dcvc_tpu.utils.checkpoint import save_params
+from dcvc_tpu.utils.checkpoint import load_params, save_params
 from dcvc_tpu_torch.models.evc import build_evc
+from dcvc_tpu_torch.models.intra_zoo import build_zoo
 from dcvc_tpu_torch.models.registry import build
 from dcvc_tpu_torch.tools import test_image as cli
 from dcvc_tpu_torch.utils import stream
@@ -164,6 +169,32 @@ def test_intra_dc_cli_writes_the_port_runtimes_bins(case):
 
 @pytest.mark.parametrize("model", ["bmshj2018-factorized", "mbt2018"])
 def test_unported_models_point_at_the_roadmap(case, model):
+    """These two zoo models once raised here, pointing at the ROADMAP; the
+    zoo is ported, so they code. A per-rate model runs one rate point
+    (``--rate_num 2`` is cut to 1) and writes the ``.bin`` files
+    (``encode_i_strings``) that the JAX image CLI's zoo branch writes
+    through the JAX ``IntraZooRuntime``, byte for byte, from a full-width
+    port ``.pth`` that the JAX package loads with its own converter
+    (``load_params``, ``port_zoo``)."""
     d, _ = case
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run(d, model, "--model", model)
+    path = d / f"{model}.pth"
+    tm = build_zoo(model, seed=21, device="cpu")
+    with torch.no_grad():
+        q = tm.entropy_bottleneck.quantiles
+        q.add_(torch.from_numpy(np.random.default_rng(21).normal(
+            0, 1.5, q.shape).astype(np.float32)))
+    torch.save(tm.state_dict(), path)
+    res = _run(d, model, "--model", model, "--model_path", str(path),
+               "--rate_num", "2", "--write_stream", "1")
+    _check_schema(res, 1)
+    rt = JIntraZooRuntime(jzoo.model_architectures[model](),
+                          load_params(str(path), model=model))
+    rt.update(force=True)
+    for name, (h, w) in SIZES.items():
+        img = np.asarray(Image.open(d / "imgs" / name).convert("RGB"),
+                         dtype=np.float32) / 255.0
+        l, r, t, b = get_padding_size(h, w, 64)
+        x = jnp.asarray(np.pad(img, ((t, b), (l, r), (0, 0)), mode="edge"))[None]
+        jpath = d / f"jax_{model}_{name}.bin"
+        jstream.encode_i_strings(h, w, rt.compress(x)["strings"], jpath)
+        assert (d / model / f"{name}_0.bin").read_bytes() == jpath.read_bytes()
