@@ -89,15 +89,39 @@ no result line):
      P-frame: K1 1 + 1, K1 vs plain at [1, 64, 1088, 1920], timed;
  21. the video CLI on the 1080p PNG sequence: mbt2018-mean + dmc_tcm
      writing streams and decoded PNGs equal to a fresh re-decode;
- 22. one JSON line per kernel, then the result line.
+ 22. training, card against CPU: one cascade-1 STE step of full-width DMC
+     (exact warps) at 128x128, B = 2, from the same seeded weights and
+     clip: the f32 loss within 1e-4 relative, every parameter's gradient
+     within 1e-3 relative L2 compared in float64 (the f32 gradient gaps
+     are printed beside the CPU's own f32-vs-f64 gap: in f32 this
+     gradient is ill-conditioned at seeded weights);
+ 23. PFrameTrainer.fit on full-width DMC over MotionClips (256 px, 5
+     frames, B = 4), the three DEFAULT_SCHEDULE stages cut to 3 steps
+     each: step ms (median of the last two), peak memory and loss per
+     stage; losses finite, parameters moved, K1 not launched; then one
+     more cascade-1 step under torch.profiler (device ms, busy share,
+     the convolution and grid_sample shares, top kernels);
+ 24. one cascade-2 undetached step with and without remat (noise rate
+     surrogate, 5-level MS-SSIM, 256 px, B = 4): loss and gradients within
+     1e-5 relative, peak memory of both;
+ 25. two make_intra_train_step steps of full-width IntraNoAR at 256 px,
+     B = 4: step ms and peak memory;
+ 26. phase 23's last checkpoint loaded through utils/checkpoint into
+     DmcRuntime: intra_dc I + 2 P of a 256 px motion clip through the
+     containers, symbols equal and DPB gap 0.0 (K1 2 + 2);
+ 27. the training CLI (python -m dcvc_tpu_torch.tools.train --model
+     dmc_hem --steps_per_epoch 2 --max_epochs 1 --batch_size 2) in process
+     in a temporary workdir: a checkpoint and history.json;
+ 28. one JSON line per kernel, then the result line.
 
-Every path (7 to 21) runs with the kernels' launch counts set to 0 just
-before it and read just after. Paths 7, 8, 9, 14, 19 and 20's block-mc
-frame fail if they launched none of their kernels (14 and 19: not exactly
-4 + 4; 20: not 1 + 1); paths 10-13, 15-18, 20's exact frames and 21 have
-no kernel (convolutions, elementwise ops, host rANS and host AR loops
-only) and fail if either count is not 0. Launches made to compare a
-kernel with its plain version are not counted.
+Every path (7 to 27) runs with the kernels' launch counts set to 0 just
+before it and read just after. Paths 7, 8, 9, 14, 19, 20's block-mc
+frame and 26 fail if they launched none of their kernels (14 and 19: not
+exactly 4 + 4; 20: not 1 + 1); paths 10-13, 15-18, 20's exact frames, 21
+and the training paths 22-25 and 27 have no kernel (convolutions,
+elementwise ops, host rANS and host AR loops only) and fail if either
+count is not 0. Launches made to compare a kernel with its plain version
+are not counted.
 
 Imports nothing of JAX. Needs one card; without one it exits non-zero.
 """
@@ -391,7 +415,11 @@ def _device_rows(averages) -> list:
     rows = [(getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count, e.key)
             for e in averages
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            # a user annotation (the optimizer's step range) spans kernels
+            # counted on their own rows
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
     return sorted((r for r in rows if r[0] > 0), reverse=True)
 
 
@@ -1965,6 +1993,402 @@ def zoo_tcm_cli_phase(results: dict):
     results["zoo_tcm_cli"] = row
 
 
+TRAIN_CROP, TRAIN_BATCH, TRAIN_STEPS = 256, 4, 3
+TRAIN_GRAD_TOL, TRAIN_LOSS_TOL, REMAT_TOL = 1e-3, 1e-4, 1e-5
+
+
+def _gib(n: int) -> float:
+    return n / 2 ** 30
+
+
+def _card() -> str:
+    """The card's name and power limit, printed beside every training
+    figure (nvidia-smi asked once)."""
+    from dcvc_tpu_torch.device import card_line
+
+    if not hasattr(_card, "line"):
+        _card.line = card_line()
+    return _card.line
+
+
+def _grads(module) -> dict:
+    """Every parameter's gradient (zeros where none reached it), float64
+    on the host."""
+    import torch
+
+    return {n: (torch.zeros(p.shape, dtype=torch.float64) if p.grad is None
+                else p.grad.detach().double().cpu())
+            for n, p in module.named_parameters()}
+
+
+def _worst_rel_l2(a: dict, b: dict):
+    """(worst relative L2 gap of b against a, its parameter name)."""
+    worst = (0.0, None)
+    for n, ga in a.items():
+        den = ga.norm().item()
+        num = (b[n] - ga).norm().item()
+        rel = num / den if den > 0 else (0.0 if num == 0 else math.inf)
+        worst = max(worst, (rel, n))
+    return worst
+
+
+def _train_clip(crop: int, frames: int, batch: int, seed: int):
+    """One seeded MotionClips batch [B, T, H, W, 3] (numpy)."""
+    from dcvc_tpu_torch.training.data import MotionClips
+
+    data = MotionClips(crop=crop, frames=frames, pool=batch, seed=seed)
+    return next(data.batches(batch, 1))
+
+
+def _train_step_grads(device: str, dtype, clip, lambdas):
+    """(loss, every parameter's gradient, kernel launches) of one cascade-1
+    STE step of full-width DMC (seed 71) in ``dtype`` on ``device``; no
+    update."""
+    import tempfile
+
+    import torch
+
+    from dcvc_tpu_torch.training.trainer import (PFrameTrainer, Stage,
+                                                 build_train_module)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = PFrameTrainer(build_train_module("dmc_dc", seed=71,
+                                              device=device).to(dtype),
+                           workdir=tmp, device=device)
+        _reset_counts()
+        loss = tr.loss(tr._clip(clip).to(dtype), lambdas.to(device, dtype),
+                       Stage("s", 1, 1))
+        loss.backward()
+        return float(loss.detach()), _grads(tr.module), _counts()
+
+
+def train_card_cpu_phase(results: dict):
+    """One cascade-1 STE step of full-width DMC at 128x128, B = 2, on the
+    card and on the CPU from the same seeded weights and clip: the f32
+    loss, and every parameter's gradient compared in float64 (in float32
+    the bit estimators' clamps make this gradient ill-conditioned; the f32
+    gaps are printed beside the CPU's own f32-vs-f64 gap)."""
+    import torch
+
+    clip = _train_clip(128, 2, 2, seed=70)
+    lambdas = torch.tensor([85.0, 840.0])
+    run = {(d, dt): _train_step_grads(d, dt, clip, lambdas)
+           for d in ("cpu", "cuda") for dt in (torch.float32, torch.float64)}
+
+    def loss_gap(a, b):
+        return abs(run[a][0] - run[b][0]) / abs(run[b][0])
+
+    c32, c64 = ("cpu", torch.float32), ("cpu", torch.float64)
+    g32, g64 = ("cuda", torch.float32), ("cuda", torch.float64)
+    worst64, name64 = _worst_rel_l2(run[c64][1], run[g64][1])
+    worst32, name32 = _worst_rel_l2(run[c32][1], run[g32][1])
+    floor32, floor_name = _worst_rel_l2(run[c64][1], run[c32][1])
+    launches = {k: sum(run[(d, dt)][2][k] for d, dt in run)
+                for k in run[c32][2]}
+    row = {"loss_cpu": run[c32][0], "loss_card": run[g32][0],
+           "loss_rel_gap": loss_gap(g32, c32),
+           "loss_rel_gap_f64": loss_gap(g64, c64), "loss_tol": TRAIN_LOSS_TOL,
+           "worst_grad_rel_l2_f64": worst64, "worst_grad_tensor_f64": name64,
+           "grad_tol": TRAIN_GRAD_TOL,
+           "worst_grad_rel_l2_f32": worst32, "worst_grad_tensor_f32": name32,
+           "cpu_f32_vs_f64_worst": floor32, "cpu_f32_vs_f64_tensor": floor_name,
+           "tensors": len(run[c32][1]), "launches": launches,
+           "card": _card()}
+    print(f"train card_vs_cpu {json.dumps(row)}", flush=True)
+    if not (row["loss_rel_gap"] <= TRAIN_LOSS_TOL
+            and row["loss_rel_gap_f64"] <= TRAIN_LOSS_TOL):
+        raise AssertionError(f"training loss card vs CPU: {row}")
+    if not worst64 <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"training gradient card vs CPU: {name64} "
+                             f"{worst64}")
+    _no_kernel(launches, "train card_vs_cpu")
+    results["train_card_cpu"] = row
+
+
+def _no_kernel(counts: dict, what: str):
+    if any(counts.values()):
+        raise AssertionError(f"{what}: kernels launched {counts}")
+
+
+def train_fit_phase(results: dict):
+    """PFrameTrainer.fit on full-width DMC over MotionClips (256 px, 5
+    frames, B = 4): the three DEFAULT_SCHEDULE stages cut to 3 steps each.
+    Step ms per stage (median of the last two), peak memory, loss."""
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+
+    from dcvc_tpu_torch.training.data import MotionClips
+    from dcvc_tpu_torch.training.trainer import (DEFAULT_SCHEDULE,
+                                                 PFrameTrainer,
+                                                 build_train_module)
+
+    tmp = tempfile.mkdtemp(prefix="train_fit_")
+    module = build_train_module("dmc_dc", seed=72)
+    before = {n: p.detach().clone() for n, p in module.named_parameters()}
+    schedule = [replace(st, epochs=1) for st in DEFAULT_SCHEDULE]
+    tr = PFrameTrainer(module, schedule=schedule, workdir=tmp)
+    data = MotionClips(crop=TRAIN_CROP, frames=5, pool=16, seed=73)
+    stages: dict = {}
+    step = tr.train_step
+
+    def timed_step(opt, stage, clip, lambdas):
+        if stage.name not in stages:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stages[stage.name] = {"ms": [], "loss": []}
+        t = time.time()
+        loss = step(opt, stage, clip, lambdas)
+        stages[stage.name]["ms"].append(_sync_ms(t))
+        stages[stage.name]["loss"].append(loss)
+        stages[stage.name]["peak_gib"] = _gib(
+            torch.cuda.max_memory_allocated())
+        return loss
+
+    tr.train_step = timed_step
+    _reset_counts()
+    t0 = time.time()
+    tr.fit(data, batch_size=TRAIN_BATCH, steps_per_epoch=TRAIN_STEPS)
+    wall = time.time() - t0
+    counts = _counts()
+    rows = {}
+    for st in schedule:
+        s = stages[st.name]
+        rows[st.name] = {
+            "cascade": st.cascade_frames, "detach": st.detach, "lr": st.lr,
+            "step_ms": sum(s["ms"][-2:]) / 2,
+            "step_ms_all": s["ms"], "peak_gib": s["peak_gib"],
+            "loss": s["loss"], "card": _card()}
+        print(f"train fit {st.name} {json.dumps(rows[st.name])}", flush=True)
+    moved = sum(int(not torch.equal(before[n], p.detach()))
+                for n, p in module.named_parameters())
+    losses = [v for s in stages.values() for v in s["loss"]]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"training losses not finite: {losses}")
+    if moved == 0:
+        raise AssertionError("training moved no parameter")
+    _no_kernel(counts, "train fit")
+    # one more cascade-1 step under torch.profiler: where a step's device
+    # time goes and how much of its wall time the card is busy
+    from torch.profiler import ProfilerActivity, profile
+
+    from dcvc_tpu_torch.training.step import q_levels_for_batch
+
+    clip = tr._clip(next(data.batches(TRAIN_BATCH, 1)))
+    _, lambdas = q_levels_for_batch(TRAIN_BATCH, 0, "cuda")
+    opt = tr.build_optimizer(schedule[0])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        step(opt, schedule[0], clip, lambdas)
+        wall_ms = _sync_ms(t)
+    rows_p = _device_rows(prof.key_averages())
+    device_ms = sum(r[0] for r in rows_p)
+
+    def share(keys):
+        ms = sum(r[0] for r in rows_p if any(k in r[2].lower() for k in keys))
+        return ms / device_ms if device_ms else None
+
+    conv_keys = ("conv", "xmma", "cudnn", "gemm", "cutlass", "fft",
+                 "winograd", "wgrad", "dgrad")
+    prof_row = {
+        "what": "one cascade-1 training step (forward, backward, AdamW), "
+                "profiler on", "wall_ms": wall_ms,
+        "device_ms": device_ms or None,
+        "device_busy_share": device_ms / wall_ms if device_ms else None,
+        "kernels": sum(r[1] for r in rows_p),
+        "conv_gemm_share": share(conv_keys),
+        "grid_sample_share": share(("grid_sampler",)),
+        "top": [{"ms": ms, "count": n, "name": k[:80]}
+                for ms, n, k in rows_p[:8]], "card": _card()}
+    print("train profile " + json.dumps(prof_row), flush=True)
+    ckpt = os.path.join(tmp, f"{schedule[-1].name}_ep0.pth")
+    if not (os.path.isfile(ckpt)
+            and os.path.isfile(os.path.join(tmp, "history.json"))):
+        raise AssertionError(f"fit wrote no checkpoint / history in {tmp}")
+    results["train_fit"] = {"stages": rows, "wall_s": wall,
+                            "tensors_moved": moved, "launches": counts,
+                            "profile": prof_row,
+                            "checkpoint": ckpt, "workdir": tmp}
+    print(f"train fit: {moved} of {len(before)} tensors moved, fit "
+          f"{wall:.1f} s, launches {counts}", flush=True)
+
+
+def train_remat_phase(results: dict):
+    """One cascade-2 undetached step's loss and gradients with and without
+    remat (noise + MS-SSIM, 256 px, B = 4), same weights, clip and noise
+    seed; their peak memory."""
+    import tempfile
+
+    import torch
+
+    from dcvc_tpu_torch.training.trainer import (PFrameTrainer, Stage,
+                                                 build_train_module)
+
+    clip = _train_clip(TRAIN_CROP, 3, TRAIN_BATCH, seed=74)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = PFrameTrainer(build_train_module("dmc_dc", seed=75), workdir=tmp,
+                           quant_mode="noise", distortion="ssim")
+        x = tr._clip(clip)
+        lambdas = torch.tensor([85.0, 170.0, 380.0, 840.0], device="cuda")
+        _reset_counts()
+        # each twice, alternating, and the second of each kept: the first
+        # call at these shapes picks the convolution algorithms
+        for remat in (False, True, False, True):
+            tr.module.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.time()
+            loss = tr.loss(x, lambdas, Stage("s", 1, 2, detach=False,
+                                             remat=remat), key=76)
+            loss.backward()
+            ms = _sync_ms(t)
+            out[remat] = (float(loss.detach()), _grads(tr.module), ms,
+                          _gib(torch.cuda.max_memory_allocated()))
+        counts = _counts()
+    loss_gap = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+    worst, name = _worst_rel_l2(out[False][1], out[True][1])
+    row = {"loss": out[False][0], "loss_remat": out[True][0],
+           "loss_rel_gap": loss_gap, "worst_grad_rel_l2": worst,
+           "worst_grad_tensor": name, "tol": REMAT_TOL,
+           "ms": out[False][2], "ms_remat": out[True][2],
+           "peak_gib": out[False][3], "peak_gib_remat": out[True][3],
+           "launches": counts, "card": _card()}
+    print(f"train remat {json.dumps(row)}", flush=True)
+    if not (loss_gap <= REMAT_TOL and worst <= REMAT_TOL):
+        raise AssertionError(f"remat changes the step: loss {loss_gap}, "
+                             f"{name} {worst}")
+    _no_kernel(counts, "train remat")
+    results["train_remat"] = row
+
+
+def train_intra_phase(results: dict):
+    """Two make_intra_train_step steps of full-width IntraNoAR (N = 256) at
+    256 px, B = 4."""
+    import torch
+
+    from dcvc_tpu_torch.models.intra_dc import build_intra_dc
+    from dcvc_tpu_torch.training.step import (make_intra_train_step,
+                                              make_optimizer,
+                                              q_levels_for_batch)
+
+    module = build_intra_dc(seed=77)
+    opt = make_optimizer(module.parameters())
+    step = make_intra_train_step(module, opt)
+    x = torch.rand(TRAIN_BATCH, 3, TRAIN_CROP, TRAIN_CROP,
+                   generator=torch.Generator(device="cuda").manual_seed(78),
+                   device="cuda")
+    q = torch.ones(TRAIN_BATCH, 1, 1, 1, device="cuda")
+    _, lambdas = q_levels_for_batch(TRAIN_BATCH, device="cuda")
+    _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(2):
+        t = time.time()
+        loss, aux = step(x, q, lambdas)
+        losses.append(float(loss))
+        ms.append(_sync_ms(t))
+    row = {"step_ms": ms, "loss": losses,
+           "peak_gib": _gib(torch.cuda.max_memory_allocated()),
+           "launches": _counts(), "card": _card()}
+    print(f"train intra {json.dumps(row)}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"intra losses not finite: {losses}")
+    _no_kernel(row["launches"], "train intra")
+    results["train_intra"] = row
+
+
+def train_ckpt_phase(results: dict):
+    """The fit phase's last checkpoint loaded into DmcRuntime through
+    utils/checkpoint: intra_dc I + 2 P of the 256 px motion clip, through
+    the containers; symbols equal and DPB gap 0.0."""
+    import torch
+
+    from dcvc_tpu_torch.models.registry import build
+    from dcvc_tpu_torch.utils import stream
+    from dcvc_tpu_torch.utils.checkpoint import load_state_dict
+
+    sd = load_state_dict(results["train_fit"]["checkpoint"], "dmc_dc")
+    _, irt = build("intra_dc", seed=79)
+    _, prt = build("dmc_dc", state_dict=sd)
+    irt.update()
+    prt.update()
+    taps = {"i": _SymbolTap(irt), "p": _SymbolTap(prt)}
+    clip = _train_clip(TRAIN_CROP, 3, 1, seed=80)[0]
+    # fresh NCHW tensors (a permuted host array keeps channels-last strides)
+    frames = [torch.empty((1, 3, TRAIN_CROP, TRAIN_CROP), device="cuda")
+              .copy_(torch.from_numpy(f).permute(2, 0, 1)[None]) for f in clip]
+    h = w = TRAIN_CROP
+    q_index = 32
+    rows = []
+    _reset_counts()
+    for i, x in enumerate(frames):
+        if i == 0:
+            comp = irt.compress(x, False, q_index)
+            data = stream.pack_i(h, w, False, q_index, comp["bit_stream"])
+            _, _, qc, qi, s = stream.unpack_i(bytes(data))
+            dec = irt.decompress(s, h, w, qc, qi)
+            gap = (comp["x_hat"] - dec["x_hat"]).abs().max().item()
+            dpb_enc = {"ref_frame": comp["x_hat"], "ref_feature": None,
+                       "ref_mv_feature": None, "ref_y": None,
+                       "ref_mv_y": None}
+            dpb_dec = dict(dpb_enc, ref_frame=dec["x_hat"])
+            ok = taps["i"].equal()
+        else:
+            comp = prt.compress(x, dpb_enc, False, q_index, i)
+            data = stream.pack_p(comp["bit_stream"], False, q_index, i)
+            qc, qi, fi, s = stream.unpack_p(bytes(data))
+            dec = prt.decompress(dpb_dec, s, h, w, qc, qi, fi)
+            gap = _dpb_gap(comp["dpb"], dec["dpb"])
+            dpb_enc, dpb_dec = comp["dpb"], dec["dpb"]
+            ok = taps["p"].equal()
+        rows.append({"frame": i, "bytes": len(data), "symbols_equal": ok,
+                     "gap": gap})
+    counts = _counts()
+    print(f"train checkpoint -> coder {json.dumps(rows)}; launches "
+          f"{counts}", flush=True)
+    for r in rows:
+        if not (r["symbols_equal"] and r["gap"] == 0.0):
+            raise AssertionError(f"trained checkpoint frame {r['frame']}: "
+                                 f"symbols equal {r['symbols_equal']}, gap "
+                                 f"{r['gap']}")
+    if counts["band_copy"] or counts["block_warp"] < 2:
+        raise AssertionError(f"trained checkpoint coding launches {counts}")
+    results["train_ckpt"] = {"frames": rows, "launches": counts}
+
+
+def train_cli_phase(results: dict):
+    """python -m dcvc_tpu_torch.tools.train --model dmc_hem
+    --steps_per_epoch 2 --max_epochs 1 --batch_size 2, in process, in a
+    temporary workdir: a checkpoint and history.json."""
+    import tempfile
+
+    from dcvc_tpu_torch.tools import train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_counts()
+        t = time.time()
+        tr = train.main(["--model", "dmc_hem", "--steps_per_epoch", "2",
+                         "--max_epochs", "1", "--batch_size", "2",
+                         "--workdir", tmp])
+        wall = time.time() - t
+        counts = _counts()
+        files = sorted(os.listdir(tmp))
+        with open(os.path.join(tmp, "history.json")) as f:
+            history = json.load(f)
+    row = {"wall_s": wall, "files": files, "history": history,
+           "launches": counts, "card": _card()}
+    print(f"train cli {json.dumps(row)}", flush=True)
+    if "train_2frames_ep0.pth" not in files or len(history) != 1 \
+            or not math.isfinite(history[0]["loss"]) or tr.updates != 2:
+        raise AssertionError(f"train CLI: {row}")
+    _no_kernel(counts, "train cli")
+    results["train_cli"] = row
+
+
 def main() -> int:
     import torch
 
@@ -1998,7 +2422,9 @@ def main() -> int:
               diag_phase, evc_phase, evc_scalable_phase, image_cli_phase,
               hem_phase, hem_block_phase, canf_phase, hem_cli_phase,
               zoo_phase, tcm_phase, tcm_block_phase, gen1_phase,
-              zoo_tcm_cli_phase]
+              zoo_tcm_cli_phase, train_card_cpu_phase, train_fit_phase,
+              train_remat_phase, train_intra_phase, train_ckpt_phase,
+              train_cli_phase]
     for i, phase in enumerate(phases):
         t = time.time()
         phase(results)
@@ -2029,6 +2455,13 @@ def main() -> int:
             "tcm_runtimes": results["tcm"]["launches"][kernel],
             "gen1_runtimes": results["gen1"]["launches"][kernel],
             "zoo_tcm_cli": results["zoo_tcm_cli"]["launches"][kernel]}
+    def training_launches(kernel):
+        """Launches on the training paths (0 on all but the trained
+        checkpoint's coding, checked in their phases)."""
+        return {f"training_{k}": results[f"train_{k}"]["launches"][kernel]
+                for k in ("card_cpu", "fit", "remat", "intra", "cli")} | {
+            "training_checkpoint_coding":
+                results["train_ckpt"]["launches"][kernel]}
     hem_k1 = results["hem_block"]["k1_64ch_full_res"]
     gen1_k1 = results["gen1_block"]["k1_64ch_full_res"]
     print(json.dumps({"kernels": [{
@@ -2042,7 +2475,8 @@ def main() -> int:
             "cli": cli_k1, "diag_dma": 0, **no_kernel_paths("block_warp"),
             "hem_block_mc": results["hem_block"]["launches"]["block_warp"],
             "tcm_block_mc": results["tcm_block"]["launches"]["block_warp"],
-            "gen1_block_mc": results["gen1_block"]["launches"]["block_warp"]},
+            "gen1_block_mc": results["gen1_block"]["launches"]["block_warp"],
+            **training_launches("block_warp")},
         "max_abs_err": max(r["max_abs_err"] for n, r in k1.items()
                            if n.endswith("f32")),
         "max_abs_err_bf16": max(r["max_abs_err"] for n, r in k1.items()
@@ -2083,7 +2517,8 @@ def main() -> int:
                              "tcm_block_mc": results["tcm_block"]["launches"]
                              ["band_copy"],
                              "gen1_block_mc": results["gen1_block"]
-                             ["launches"]["band_copy"]},
+                             ["launches"]["band_copy"],
+                             **training_launches("band_copy")},
         "max_abs_err": max(r["max_abs_err"]
                            for r in results["band_copy"].values()),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],

@@ -115,15 +115,21 @@ class DualPriorCodec(nn.Module):
         return priors.dual_decode_scales(means, scales, q_step, half0, half1,
                                          self.spatial_prior_chunks, 1)
 
-    def _code(self, x, y, curr_q, quant):
+    def _code(self, x, y, curr_q, quant, generator=None):
         """Hyperprior, dual prior, synthesis and bit costs of latent ``y``
-        (already divided by the quant step) for input ``x``."""
+        (already divided by the quant step) for input ``x``. With a
+        ``generator`` the bits come from noise-added residuals (the
+        training surrogate; y, then z)."""
         z = self.hyper_enc(y)
         z_hat = quant(z)
         q_step, scales, means = self.prior_params(z_hat)
-        _, y_q, y_hat, scales_hat = priors.forward_dual_prior(
+        y_res, y_q, y_hat, scales_hat = priors.forward_dual_prior(
             y, means, scales, q_step, self.spatial_prior_chunks, quant=quant)
         x_hat = self.reconstruct(y_hat * curr_q)
+        if generator is not None:
+            # training rate surrogate (HEM common_model.py:47-50)
+            y_q = priors.quant_noise(y_res, generator)
+            z_hat = priors.quant_noise(z, generator)
         bits_y = bits.y_gaussian_bits(y_q, torch.clamp(scales_hat, 0.11, 1e10))
         bits_z = bits.z_bits(z_hat, self.bit_estimator_z)
         pixel_num = x.shape[2] * x.shape[3]
@@ -143,12 +149,16 @@ class DualPriorCodec(nn.Module):
             "x_hat": torch.clamp(self.reconstruct(y_hat * curr_q), 0.0, 1.0),
         }
 
-    def forward(self, x, q_scale, quant_mode: str = "round"):
-        """Estimated-bits forward: x_hat + bit costs. ``x`` [B,3,H,W]."""
+    def forward(self, x, q_scale, quant_mode: str = "round", generator=None):
+        """Estimated-bits forward: x_hat + bit costs. ``x`` [B,3,H,W].
+        ``quant_mode="noise"`` draws the rate surrogate from ``generator``."""
         quant = priors.resolve_quant(quant_mode)
         curr_q = self.get_curr_q(q_scale)
         y = self.enc(x) / curr_q
-        x_hat, bpp_y, bpp_z, pixel_num = self._code(x, y, curr_q, quant)
+        if quant_mode == "noise" and generator is None:
+            raise ValueError("quant_mode 'noise' needs a torch.Generator")
+        x_hat, bpp_y, bpp_z, pixel_num = self._code(
+            x, y, curr_q, quant, generator if quant_mode == "noise" else None)
         return {
             "x_hat": x_hat,
             "bit": (bpp_y + bpp_z).sum() * pixel_num,

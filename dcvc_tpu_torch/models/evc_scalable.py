@@ -65,6 +65,9 @@ class ScalableEVC(_EvcCodec):
                 quant_mode: str = "round"):
         """Estimated bits of every encoder of the bank (batch S * B) or of
         ``forward_enc_id``, with each recon's mse."""
+        if quant_mode == "noise":
+            # the JAX package's scalable EVC has no noise branch either
+            raise ValueError("evc_scalable has no quant_mode 'noise'")
         quant = priors.resolve_quant(quant_mode)
         xs, y, curr_q = self.multi_encode(x, q_scale, forward_enc_id)
         x_hat, bpp_y, bpp_z, pixel_num = self._code(x, y, curr_q, quant)

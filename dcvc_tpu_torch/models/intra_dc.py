@@ -107,8 +107,11 @@ class IntraNoAR(nn.Module):
 
     # -- public paths --
 
-    def forward(self, x, q_enc_scale, q_dec_scale, quant_mode: str = "round"):
-        """Estimated-bits forward. ``x`` [B,3,H,W] in [0, 1]."""
+    def forward(self, x, q_enc_scale, q_dec_scale, quant_mode: str = "round",
+                generator=None):
+        """Estimated-bits forward. ``x`` [B,3,H,W] in [0, 1]. Under
+        ``quant_mode="noise"`` the bits come from noise-added residuals
+        drawn from ``generator`` (y, then z)."""
         quant = priors.resolve_quant(quant_mode)
         curr_q_enc = self.q_basic_enc * q_enc_scale
         curr_q_dec = self.q_basic_dec * q_dec_scale
@@ -117,10 +120,14 @@ class IntraNoAR(nn.Module):
         z = self.hyper_enc(y_pad)
         z_hat = quant(z)
         params = self.prior_params(z_hat, pad)
-        _, y_q, y_hat, scales_hat = priors.forward_four_part_prior(
+        y_res, y_q, y_hat, scales_hat = priors.forward_four_part_prior(
             y, params, self.spatial_prior_fns(), quant=quant)
         x_hat = self.synthesize(y_hat, curr_q_dec)
 
+        if quant_mode == "noise":
+            # training rate surrogate (HEM common_model.py:47-50)
+            y_q = priors.quant_noise(y_res, generator)
+            z_hat = priors.quant_noise(z, generator)
         bits_y = bits.y_gaussian_bits(y_q, scales_hat)
         bits_z = bits.z_bits(z_hat, self.bit_estimator_z)
         pixel_num = x.shape[2] * x.shape[3]

@@ -48,6 +48,16 @@ def _gaussian_bits(y_q, scales):
     return -torch.log2(torch.clamp_min(probs, 1e-9))
 
 
+def _zoo_quant(quant_mode: str, generator):
+    """The quantizer of both the recon and the rate paths: under
+    ``"noise"`` the CompressAI training convention adds noise to both
+    (entropy_models.py quantize(..., "noise")), unlike the DMC
+    generations' STE recon with a noisy rate."""
+    if quant_mode == "noise":
+        return lambda t: priors.quant_noise(t, generator)
+    return priors.resolve_quant(quant_mode)
+
+
 def _g_a(N: int, M: int) -> nn.Sequential:
     """conv5x5-s2 + GDN, three times, then conv5x5-s2 to M."""
     return nn.Sequential(conv(3, N, 5, 2), GDN(N), conv(N, N, 5, 2), GDN(N),
@@ -69,9 +79,10 @@ class FactorizedPrior(nn.Module):
         self.g_a = _g_a(N, M)
         self.g_s = _g_s(N, M)
 
-    def forward(self, x, quant_mode: str = "round"):
+    def forward(self, x, quant_mode: str = "round", generator=None):
         y = self.g_a(x)
-        y_hat, y_lik = self.entropy_bottleneck(y, priors.resolve_quant(quant_mode))
+        y_hat, y_lik = self.entropy_bottleneck(
+            y, _zoo_quant(quant_mode, generator))
         pixel_num = x.shape[2] * x.shape[3]
         bpp_y = _probs_to_bits(y_lik).sum(dim=(1, 2, 3)) / pixel_num
         return {"x_hat": self.g_s(y_hat), "bpp": bpp_y, "bpp_y": bpp_y,
@@ -99,8 +110,8 @@ class _HyperBase(nn.Module):
         """(y_q, y_hat, scales) of ``y`` given the hyper decoder's output."""
         raise NotImplementedError
 
-    def forward(self, x, quant_mode: str = "round"):
-        quant = priors.resolve_quant(quant_mode)
+    def forward(self, x, quant_mode: str = "round", generator=None):
+        quant = _zoo_quant(quant_mode, generator)
         y, z = self.analyze(x)
         z_hat, z_lik = self.entropy_bottleneck(z, quant)
         y_q, y_hat, scales = self._y_hat(y, self.h_s(z_hat), quant)

@@ -42,14 +42,30 @@ def quant_ste(x):
     return _QuantSTE.apply(x)
 
 
+def quant_noise(x, generator: torch.Generator):
+    """``x + U(-0.5, 0.5)``, drawn from ``generator`` on ``x``'s device: the
+    training rate surrogate (reference ``add_noise``, DCVC-HEM
+    common_model.py:47-50)."""
+    if generator is None:
+        raise ValueError("quant_mode 'noise' needs a torch.Generator")
+    u = torch.rand(x.shape, generator=generator, dtype=x.dtype,
+                   device=x.device)
+    return x + (u - 0.5)
+
+
 def resolve_quant(quant_mode: str):
-    """Recon-path quantizer for a quant_mode string ("round" | "ste")."""
+    """Recon-path quantizer for a quant_mode string ("round" | "ste" |
+    "noise").
+
+    ``"noise"`` is the fork's training mode: the recon path still rounds
+    through STE (reference ``self.quant``, DCVC-HEM common_model.py:39-44)
+    while the bit estimate takes noise-added residuals, which each model
+    draws itself with :func:`quant_noise`."""
     if quant_mode == "round":
         return quant_round
-    if quant_mode == "ste":
+    if quant_mode in ("ste", "noise"):
         return quant_ste
-    raise NotImplementedError(
-        f"quant_mode {quant_mode!r}: training modes wait for a later slice")
+    raise ValueError(f"unknown quant_mode {quant_mode!r}")
 
 
 def spatial_phase_mask(H: int, W: int, phase: int, dtype=torch.float32,

@@ -291,9 +291,11 @@ class DMC(nn.Module):
     # ---- full paths ----
 
     def forward(self, x, dpb, q_scales, frame_idx: int = 0,
-                quant_mode: str = "round"):
+                quant_mode: str = "round", generator=None):
         """forward_one_frame (video_model.py:559-628): estimated bits.
-        ``q_scales`` maps mv_enc / mv_dec / y_enc / y_dec to scalars."""
+        ``q_scales`` maps mv_enc / mv_dec / y_enc / y_dec to scalars.
+        Under ``quant_mode="noise"`` the bits come from noise-added
+        residuals drawn from ``generator`` (y, mv_y, z, mv_z)."""
         quant = priors.resolve_quant(quant_mode)
         mv_y_q_enc, mv_y_q_dec, y_q_enc, y_q_dec = self._q(q_scales)
 
@@ -301,22 +303,31 @@ class DMC(nn.Module):
         mv_z_hat = quant(mv_z)
         mv_params = self.mv_prior_param_decoder(mv_z_hat, dpb["ref_mv_y"],
                                                 slice_shape)
-        _, mv_y_q, mv_y_hat, mv_scales_hat = priors.forward_four_part_prior(
-            mv_y, mv_params, self.spatial_prior_fns("mv"), quant=quant)
+        mv_y_res, mv_y_q, mv_y_hat, mv_scales_hat = \
+            priors.forward_four_part_prior(
+                mv_y, mv_params, self.spatial_prior_fns("mv"), quant=quant)
         mv_hat, mv_feature = self.mv_decoder(mv_y_hat, mv_y_q_dec)
         context1, context2, context3, _ = self.motion_compensation(
             dpb, mv_hat, frame_idx)
 
         y = self.contextual_encoder(x, context1, context2, context3, y_q_enc)
         y_pad, slice_shape = pad_for_y(y)
-        z_hat = quant(self.contextual_hyper_prior_encoder(y_pad))
+        z = self.contextual_hyper_prior_encoder(y_pad)
+        z_hat = quant(z)
         params = self.res_prior_param_decoder(z_hat, dpb["ref_y"], context3,
                                               slice_shape)
-        _, y_q, y_hat, scales_hat = priors.forward_four_part_prior(
+        y_res, y_q, y_hat, scales_hat = priors.forward_four_part_prior(
             y, params, self.spatial_prior_fns("y"), quant=quant)
         x_hat, feature = self.get_recon_and_feature(
             y_hat, context1, context2, context3, y_q_dec)
 
+        if quant_mode == "noise":
+            # training rate surrogate: bits from noise-quantized residuals
+            # while the recon path stays STE (HEM video_model.py:466-471)
+            y_q = priors.quant_noise(y_res, generator)
+            mv_y_q = priors.quant_noise(mv_y_res, generator)
+            z_hat = priors.quant_noise(z, generator)
+            mv_z_hat = priors.quant_noise(mv_z, generator)
         pixel_num = x.shape[2] * x.shape[3]
         bpp = {}
         for k, b in (("bpp_y", bits.y_laplace_bits(y_q, scales_hat)),

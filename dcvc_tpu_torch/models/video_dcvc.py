@@ -165,10 +165,14 @@ class DCVCNet(nn.Module):
 
     # ---- the estimated-bits forward ----
 
-    def forward(self, referframe, input_image, quant_mode: str = "round"):
+    def forward(self, referframe, input_image, quant_mode: str = "round",
+                generator=None):
+        """Estimated bits. Under ``quant_mode="noise"`` they come from
+        noise-added residuals drawn from ``generator`` (y, mv, z, mv_z)."""
         quant = priors.resolve_quant(quant_mode)
         mv_feature = self.mvEncoder(self.opticFlow(input_image, referframe))
-        mv_z_hat = quant(self.mvpriorEncoder(mv_feature))
+        mv_z = self.mvpriorEncoder(mv_feature)
+        mv_z_hat = quant(mv_z)
         params_mv = self.mvpriorDecoder(mv_z_hat)
         quant_mv = quant(mv_feature)
         gp_mv = self.entropy_parameters_mv(
@@ -181,7 +185,8 @@ class DCVCNet(nn.Module):
         temporal_prior = self.temporalPriorEncoder(context)
 
         y = self.contextualEncoder(torch.cat([input_image, context], dim=1))
-        z_hat = quant(self.priorEncoder(y))
+        z = self.priorEncoder(y)
+        z_hat = quant(z)
         params = self.priorDecoder(z_hat)
         y_hat = quant(y)
         gp = self.entropy_parameters(torch.cat(
@@ -189,11 +194,19 @@ class DCVCNet(nn.Module):
         means, scales = gp.chunk(2, dim=1)
         recon = self.contextual_decoder(y_hat, context)
 
+        if quant_mode == "noise":
+            # training rate surrogate: bits from noise-quantized residuals
+            # while the recon path stays STE (HEM video_model.py:466-471)
+            y_for_bit = priors.quant_noise(y - means, generator)
+            mv_for_bit = priors.quant_noise(mv_feature - means_mv, generator)
+            z_hat = priors.quant_noise(z, generator)
+            mv_z_hat = priors.quant_noise(mv_z, generator)
+        else:
+            y_for_bit, mv_for_bit = y_hat - means, quant_mv - means_mv
         pixel_num = input_image.shape[0] * input_image.shape[2] * \
             input_image.shape[3]
-        bpp_y = bits.y_laplace_bits(y_hat - means, scales).sum() / pixel_num
-        bpp_mv_y = bits.y_laplace_bits(quant_mv - means_mv,
-                                       scales_mv).sum() / pixel_num
+        bpp_y = bits.y_laplace_bits(y_for_bit, scales).sum() / pixel_num
+        bpp_mv_y = bits.y_laplace_bits(mv_for_bit, scales_mv).sum() / pixel_num
         bpp_z = bits.z_bits(z_hat, self.bitEstimator_z).sum() / pixel_num
         bpp_mv_z = bits.z_bits(mv_z_hat, self.bitEstimator_z_mv).sum() / \
             pixel_num

@@ -179,25 +179,28 @@ class HemTrunk(nn.Module):
             self.y_prior_fusion(torch.cat([t, hier, ref_y], dim=1)))
 
     def _encode_mv(self, x, dpb, curr_mv_q, quant):
-        """The mv latent (divided by its q), its quantised hyper-latent and
-        the mv prior's (q_step, scales, means)."""
+        """The mv latent (divided by its q), its hyper-latent, that
+        quantised, and the mv prior's (q_step, scales, means)."""
         mv_y = self.mv_encoder(self.optic_flow(x, dpb["ref_frame"])) / curr_mv_q
-        mv_z_hat = quant(self.mv_hyper_prior_encoder(mv_y))
-        return mv_y, mv_z_hat, self.mv_prior(mv_z_hat, dpb["ref_mv_y"],
-                                             mv_y.shape)
+        mv_z = self.mv_hyper_prior_encoder(mv_y)
+        mv_z_hat = quant(mv_z)
+        return mv_y, mv_z, mv_z_hat, self.mv_prior(mv_z_hat, dpb["ref_mv_y"],
+                                                   mv_y.shape)
 
     # ---- full paths ----
 
     def forward(self, x, dpb, mv_y_q_scale, y_q_scale,
-                quant_mode: str = "round"):
-        """Estimated-bits P-frame (video_model.py:415-519)."""
+                quant_mode: str = "round", generator=None):
+        """Estimated-bits P-frame (video_model.py:415-519). Under
+        ``quant_mode="noise"`` the bits come from noise-added residuals
+        drawn from ``generator`` (y, mv_y, z, mv_z)."""
         quant = priors.resolve_quant(quant_mode)
         curr_mv_q = self.get_curr_mv_y_q(mv_y_q_scale)
         curr_y_q = self.get_curr_y_q(y_q_scale)
 
-        mv_y, mv_z_hat, (mv_q_step, mv_scales, mv_means) = \
+        mv_y, mv_z, mv_z_hat, (mv_q_step, mv_scales, mv_means) = \
             self._encode_mv(x, dpb, curr_mv_q, quant)
-        _, mv_y_q, mv_y_hat, mv_scales_hat = priors.forward_dual_prior(
+        mv_y_res, mv_y_q, mv_y_hat, mv_scales_hat = priors.forward_dual_prior(
             mv_y, mv_means, mv_scales, mv_q_step, self.mv_spatial_chunks,
             quant=quant)
         mv_y_hat = mv_y_hat * curr_mv_q
@@ -206,14 +209,22 @@ class HemTrunk(nn.Module):
 
         y, state = self._analysis(x, contexts)
         y = y / curr_y_q
-        z_hat = quant(self.contextual_hyper_prior_encoder(y))
+        z = self.contextual_hyper_prior_encoder(y)
+        z_hat = quant(z)
         q_step, scales, means = self.y_prior(z_hat, dpb["ref_y"], contexts[2],
                                              y.shape)
-        _, y_q, y_hat, scales_hat = priors.forward_dual_prior(
+        y_res, y_q, y_hat, scales_hat = priors.forward_dual_prior(
             y, means, scales, q_step, self.y_spatial_chunks, quant=quant)
         y_hat = y_hat * curr_y_q
         x_hat, feature, extra = self._synthesis(y_hat, contexts, state)
 
+        if quant_mode == "noise":
+            # training rate surrogate: bits from noise-quantized residuals
+            # while the recon path stays STE (video_model.py:466-471)
+            y_q = priors.quant_noise(y_res, generator)
+            mv_y_q = priors.quant_noise(mv_y_res, generator)
+            z_hat = priors.quant_noise(z, generator)
+            mv_z_hat = priors.quant_noise(mv_z, generator)
         pixel_num = x.shape[2] * x.shape[3]
 
         def bpp(b):
@@ -242,7 +253,7 @@ class HemTrunk(nn.Module):
         curr_mv_q = self.get_curr_mv_y_q(mv_y_q_scale)
         curr_y_q = self.get_curr_y_q(y_q_scale)
 
-        mv_y, mv_z_hat, (mv_q_step, mv_scales, mv_means) = \
+        mv_y, _, mv_z_hat, (mv_q_step, mv_scales, mv_means) = \
             self._encode_mv(x, dpb, curr_mv_q, torch.round)
         mv_w0, mv_w1, mv_s0, mv_s1, mv_y_hat = priors.forward_dual_prior(
             mv_y, mv_means, mv_scales, mv_q_step, self.mv_spatial_chunks,

@@ -215,7 +215,8 @@ class DMCTcm(nn.Module):
         c1, c2, c3, warp_frame = self.motion_compensation(ref_frame,
                                                           ref_feature, mv_hat)
         y = self.contextual_encoder(x, c1, c2, c3)
-        z_hat = quant(self.contextual_hyper_prior_encoder(y))
+        z = self.contextual_hyper_prior_encoder(y)
+        z_hat = quant(z)
         scales, means = self.y_gaussian_params(z_hat, c1, c2, c3)
         y_q = quant(y - means)
         res = self.contextual_decoder(y_q + means, c2, c3)
@@ -223,12 +224,21 @@ class DMCTcm(nn.Module):
         return {"mv_z_hat": mv_z_hat, "z_hat": z_hat, "mv_y_q": mv_y_q,
                 "mv_scales": mv_scales, "y_q": y_q, "scales": scales,
                 "x_hat": torch.clamp(recon, 0.0, 1.0), "feature": feature,
-                "warp_frame": warp_frame}
+                "warp_frame": warp_frame,
+                "noise_inputs": (y - means, mv_y - mv_means, z, mv_z)}
 
-    def forward(self, x, ref_frame, ref_feature, quant_mode: str = "round"):
-        """Estimated-bits P-frame (video_net_dmc.py:417-509)."""
+    def forward(self, x, ref_frame, ref_feature, quant_mode: str = "round",
+                generator=None):
+        """Estimated-bits P-frame (video_net_dmc.py:417-509). Under
+        ``quant_mode="noise"`` the bits come from noise-added residuals
+        drawn from ``generator`` (y, mv_y, z, mv_z)."""
         out = self._code(x, ref_frame, ref_feature,
                          priors.resolve_quant(quant_mode))
+        if quant_mode == "noise":
+            # training rate surrogate: bits from noise-quantized residuals
+            # while the recon path stays STE (HEM video_model.py:466-471)
+            out["y_q"], out["mv_y_q"], out["z_hat"], out["mv_z_hat"] = (
+                priors.quant_noise(t, generator) for t in out["noise_inputs"])
         pixel_num = x.shape[0] * x.shape[2] * x.shape[3]
         bpp_y = bits.y_laplace_bits(out["y_q"], out["scales"]).sum() / pixel_num
         bpp_mv_y = bits.y_laplace_bits(out["mv_y_q"],
@@ -250,7 +260,7 @@ class DMCTcm(nn.Module):
         """Device half of compress: the z planes, the symbol and scale
         planes of mv_y and y, the encoder's recon and feature."""
         out = self._code(x, ref_frame, ref_feature, torch.round)
-        del out["warp_frame"]
+        del out["warp_frame"], out["noise_inputs"]
         return out
 
     # ---- decode-side stages (host rANS between them) ----

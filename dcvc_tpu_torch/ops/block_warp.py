@@ -360,11 +360,19 @@ def block_warp_nchw(im: torch.Tensor, flow: torch.Tensor, Dh: int = 8,
     """Block warp of ``im`` [M,C,H,W] by ``flow`` [M,2,H,W] (fx, fy px).
 
     CUDA tensors launch the kernel (``block_warp_nchw.launches`` counts
-    them); CPU tensors take the plain version."""
+    them); CPU tensors take the plain version. The kernel has no backward,
+    as the TPU kernel has none: on the card it refuses inputs that need a
+    gradient rather than return a result cut off from the graph (training
+    takes the exact warp)."""
     BH, BW = _block_dims(im.shape[2], im.shape[3], BH, BW)
     if im.device.type == "cuda":
         if flow.device != im.device:
             raise ValueError("im and flow must be on the same device")
+        if torch.is_grad_enabled() and (im.requires_grad
+                                        or flow.requires_grad):
+            raise RuntimeError(
+                "block_warp: the CUDA kernel has no backward; build the "
+                "model with exact warps (warp mode 'exact') to train it")
         return _launch(im, flow, Dh, Rv, BH, BW, base_mode, pad)
     if im.device.type != "cpu" or flow.device.type != "cpu":
         raise ValueError(f"unsupported devices {im.device}, {flow.device}")

@@ -380,3 +380,81 @@ def test_band_copy_refused_shared_memory_raises(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(out, bc.band_copy_plain(src, by), atol=0,
                                rtol=0)
+
+
+def test_block_warp_refuses_autograd_on_card(cuda):
+    """K1 has no backward (nor has the TPU kernel): on the card it raises
+    for inputs that need a gradient, counts no launch, and launches under
+    no_grad. DMC's card default (the block OD warp) cannot train; the
+    training builder's exact warps can, with no K1 launch."""
+    from dcvc_tpu_torch.training.trainer import build_train_module
+
+    im = torch.rand(2, 3, 64, 128, device=cuda, requires_grad=True)
+    flow = torch.zeros(2, 2, 64, 128, device=cuda)
+    before = bw.block_warp_nchw.launches
+    for a, b in ((im, flow), (im.detach(), flow.requires_grad_(True))):
+        with pytest.raises(RuntimeError, match="no backward"):
+            bw.block_warp_nchw(a, b, 4, 4, 64, 128, "median4")
+    assert bw.block_warp_nchw.launches == before
+    with torch.no_grad():
+        bw.block_warp_nchw(im, flow, 4, 4, 64, 128, "median4")
+    assert bw.block_warp_nchw.launches == before + 1
+    from dcvc_tpu_torch.models.video_dc import build_dmc
+
+    x = torch.rand(1, 3, 64, 64, device=cuda)
+    dpb = {"ref_frame": torch.rand_like(x), "ref_feature": None,
+           "ref_mv_feature": None, "ref_y": None, "ref_mv_y": None}
+    q = torch.ones(1, 1, 1, 1, device=cuda)
+    qs = {k: q for k in ("mv_enc", "mv_dec", "y_enc", "y_dec")}
+    with pytest.raises(RuntimeError, match="no backward"):
+        build_dmc(seed=0)(x, dpb, qs, 1, "ste")
+    before = bw.block_warp_nchw.launches
+    out = build_train_module("dmc_dc", seed=0)(x, dpb, qs, 1, "ste")
+    out["bpp"].sum().backward()
+    assert bw.block_warp_nchw.launches == before
+
+
+def _train_loss_and_grads(device, dtype, clip, lambdas, seed=71):
+    import tempfile
+
+    from dcvc_tpu_torch.training.trainer import (PFrameTrainer, Stage,
+                                                 build_train_module)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = PFrameTrainer(build_train_module("dmc_dc", seed=seed,
+                                              device=device).to(dtype),
+                           workdir=tmp, device=device)
+        loss = tr.loss(tr._clip(clip).to(dtype), lambdas.to(device, dtype),
+                       Stage("s", 1, 1))
+        loss.backward()
+        grads = {n: (torch.zeros(p.shape, dtype=torch.float64)
+                     if p.grad is None else p.grad.double().cpu())
+                 for n, p in tr.module.named_parameters()}
+    return float(loss.detach()), grads
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One cascade-1 STE step of full-width DMC at 64 x 64, B = 2, on the
+    card and on the CPU from the same seeded weights and clip: the f32
+    loss within 1e-4 relative; every parameter's gradient within 1e-3
+    relative L2, compared in float64 (in float32 the bit estimators' clamps
+    make this gradient ill-conditioned: the CPU's own float32 gradient is
+    ~1e-3 off its float64 one)."""
+    import numpy as np
+
+    rng = np.random.default_rng(70)
+    base = rng.random((2, 1, 16, 16, 3))
+    big = np.repeat(np.repeat(base, 8, axis=2), 8, axis=3)
+    clip = np.concatenate([big[:, :, s:s + 64, s:s + 64] for s in (0, 3)],
+                          axis=1).astype(np.float32)
+    lambdas = torch.tensor([85.0, 840.0])
+    l32 = {d: _train_loss_and_grads(d, torch.float32, clip, lambdas)[0]
+           for d in ("cpu", "cuda")}
+    assert abs(l32["cuda"] - l32["cpu"]) <= 1e-4 * abs(l32["cpu"])
+    cpu = _train_loss_and_grads("cpu", torch.float64, clip, lambdas)
+    card = _train_loss_and_grads("cuda", torch.float64, clip, lambdas)
+    assert abs(card[0] - cpu[0]) <= 1e-4 * abs(cpu[0])
+    for n, g in cpu[1].items():
+        den = g.norm().item()
+        gap = (card[1][n] - g).norm().item()
+        assert gap <= 1e-3 * den, (n, gap, den)

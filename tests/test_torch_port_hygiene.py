@@ -149,3 +149,23 @@ def test_registry_and_cli_raise_without_cuda(monkeypatch, tmp_path):
     assert test_video.main(["--test_config", str(cfg), "--device", "cpu",
                             "--force_intra", "--output_path", str(out)]) == {}
     assert out.read_text().strip() == "{}"
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The trainer, the training module builder and the training CLI run
+    on the card unless given the CPU."""
+    from dcvc_tpu_torch.training.trainer import (PFrameTrainer,
+                                                 build_train_module)
+    from dcvc_tpu_torch.tools import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = {"channel_mv": 8, "channel_N": 8, "channel_M": 8}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_train_module("dmc_hem", **small)
+    module = build_train_module("dmc_hem", device="cpu", **small)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PFrameTrainer(module, workdir=str(tmp_path))
+    assert PFrameTrainer(module, workdir=str(tmp_path),
+                         device="cpu").device.type == "cpu"
+    with pytest.raises(SystemExit, match="device='cpu'"):
+        train.main(["--workdir", str(tmp_path / "w")])

@@ -92,5 +92,8 @@ def test_masks_rounding_and_quantizers():
                                   np.asarray(jnp.round(jnp.asarray(x.detach().numpy()))))
     T.resolve_quant("ste")(x).sum().backward()
     np.testing.assert_array_equal(x.grad.numpy(), np.ones(6))
-    with pytest.raises(NotImplementedError):
-        T.resolve_quant("noise")
+    # "noise" keeps the STE recon path, as the JAX package's resolve_quant
+    assert T.resolve_quant("noise") is T.quant_ste
+    assert J.resolve_quant("noise") is J.quant_ste
+    with pytest.raises(ValueError):
+        T.resolve_quant("nearest")
