@@ -386,7 +386,7 @@ def test_block_warp_refuses_autograd_on_card(cuda):
     """K1 has no backward (nor has the TPU kernel): on the card it raises
     for inputs that need a gradient, counts no launch, and launches under
     no_grad. DMC's card default (the block OD warp) cannot train; the
-    training builder's exact warps can, with no K1 launch."""
+    exact warps of build_train_module can, with no K1 launch."""
     from dcvc_tpu_torch.training.trainer import build_train_module
 
     im = torch.rand(2, 3, 64, 128, device=cuda, requires_grad=True)

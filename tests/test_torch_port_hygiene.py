@@ -152,7 +152,7 @@ def test_registry_and_cli_raise_without_cuda(monkeypatch, tmp_path):
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
-    """The trainer, the training module builder and the training CLI run
+    """The trainer, build_train_module and the training CLI run
     on the card unless given the CPU."""
     from dcvc_tpu_torch.training.trainer import (PFrameTrainer,
                                                  build_train_module)
