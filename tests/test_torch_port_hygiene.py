@@ -1,8 +1,8 @@
 """The port stands alone and keeps its device rule.
 
-* No module of dcvc_tpu_torch, and not chip_smoke.py, imports jax, flax or
-  dcvc_tpu: checked on the source (AST) and by importing every module in a
-  fresh interpreter.
+* No module of dcvc_tpu_torch, and not chip_smoke.py, imports jax, flax,
+  optax or dcvc_tpu: checked on the source (AST) and by importing every
+  module in a fresh interpreter.
 * Entry points run on the card unless asked for the CPU: without CUDA and
   without device="cpu" they raise.
 * Every module of dcvc_tpu_torch and chip_smoke.py imports without Pillow
@@ -20,7 +20,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "dcvc_tpu_torch"
-FORBIDDEN = ("jax", "flax", "dcvc_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "dcvc_tpu")
 
 
 def _sources():
