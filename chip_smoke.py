@@ -112,10 +112,38 @@ no result line):
  27. the training CLI (python -m dcvc_tpu_torch.tools.train --model
      dmc_hem --steps_per_epoch 2 --max_epochs 1 --batch_size 2) in process
      in a temporary workdir: a checkpoint and history.json;
- 28. one JSON line per kernel, then the result line.
+ 28. the warm server (dcvc_tpu_torch.serving) in process: CodecServer
+     (intra_dc + dmc_dc, the weights of 7 loaded from .pth files) warmed
+     at 1080p and serving from a thread over a Unix socket to the port's
+     CodecClient: 3 rounds of an image (encode with recon, decode) and an
+     I + 2 P session (u8 payloads, want_recon) decoded by a second
+     session, then one session with f32 payloads of 7's frames. Decoded
+     u8 recons equal the encoder's; the f32 session's containers equal
+     7's bytes; K1 launches 2 per P encode_frame and 1 per P
+     decode_frame; device memory after close_video within 1% of before
+     open_video; each request's client ms (median of 3) beside the same
+     calls on the server's runtimes in process, and the DPB bytes held
+     per session;
+ 29. the serve CLI (python -m dcvc_tpu_torch.tools.serve --warmup 1080
+     1920) in a process of its own: an image and an I + 1 P session coded
+     there, then shutdown (exit code 0); this process codes the same
+     frames with its own seed-0 runtimes and decodes the server's
+     containers: containers equal, symbols equal, gap 0.0, recons equal;
+ 30. the video CLI with --worker_num 2 on the card (two spawned workers
+     on cuda:0; 2 sequences x 1 rate, 2 frames at 1080p, write-stream):
+     results keys and bpp, and .bin files, equal to the same items coded
+     in this process; every worker .bin decoded here with the symbols this
+     process's encoder wrote and the worker's recon YUV; then run_sharded
+     across two spawned gloo ranks (every item merged, written by both);
+ 31. model_complexity for intra_dc and dmc_dc at 1088 x 1920 (parameters,
+     convolution GFLOPs, wall); data_to_png on a 1080p YUV sequence
+     (pixels equal the direct conversion);
+ 32. one JSON line per kernel, then the result line.
 
-Every path (7 to 27) runs with the kernels' launch counts set to 0 just
-before it and read just after. Paths 7, 8, 9, 14, 19, 20's block-mc
+Every path (7 to 31) runs with the kernels' launch counts set to 0 just
+before it and read just after. The server process of 29 and the pool's
+workers of 30 cannot report their counts: K1's are given as what the
+same calls launch in process (28, and 30's in-process run). Paths 7, 8, 9, 14, 19, 20's block-mc
 frame and 26 fail if they launched none of their kernels (14 and 19: not
 exactly 4 + 4; 20: not 1 + 1); paths 10-13, 15-18, 20's exact frames, 21
 and the training paths 22-25 and 27 have no kernel (convolutions,
@@ -131,6 +159,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -487,7 +516,7 @@ def main_path_phase(results: dict):
         torch.cuda.synchronize()
         return (time.time() - t) * 1e3
 
-    per_frame = []
+    per_frame, streams = [], []
     q_index = 32
     _reset_counts()
     dpb_enc = dpb_dec = None
@@ -521,6 +550,8 @@ def main_path_phase(results: dict):
             x_hat = dec_dpb["ref_frame"]
             sym_ok = taps["p"].equal()
         l2 = bw.block_warp_nchw.launches
+        # the serving phase holds the server's containers against these
+        streams.append(bytes(comp["bit_stream"]) if i == 0 else bytes(data))
         gap = max((enc_dpb[k] - dec_dpb[k]).abs().max().item()
                   for k in enc_dpb if enc_dpb[k] is not None)
         crop = x_hat[:, :, :HEIGHT, :WIDTH]
@@ -559,6 +590,10 @@ def main_path_phase(results: dict):
         raise AssertionError("K2 launched on the codec path")
     results["launches"] = {"runtimes": counts}
     results["frames"] = per_frame
+    results["main_path"] = {
+        "q_index": q_index, "streams": streams,
+        "weights": {name: {k: v.cpu() for k, v in rt.module.state_dict().items()}
+                    for name, rt in (("intra_dc", irt), ("dmc_dc", prt))}}
 
     # one more P-frame (encode + decode) under torch.profiler: where the
     # device time goes and how much of the wall time the card is busy
@@ -601,23 +636,35 @@ def _jax_summary_keys() -> set:
     return keys
 
 
-def _write_yuv_sequence(path: str, n_frames: int):
-    """The panning content of _content as 8-bit planar YUV420."""
+def _write_yuv_sequence(path: str, n_frames: int, mirror: bool = False):
+    """The panning content of _content as 8-bit planar YUV420 (mirrored
+    left to right with ``mirror``)."""
     import numpy as np
 
     from dcvc_tpu_torch.utils import color
 
     with open(path, "wb") as f:
         for x in _content(n_frames):
+            if mirror:
+                x = x.flip(3)
             y, uv = color.rgb_to_ycbcr420(x[0].permute(1, 2, 0).cpu().numpy())
             for plane in (y, uv):
                 f.write(np.clip(np.rint(plane * 255), 0, 255)
                         .astype(np.uint8).tobytes())
 
 
-def _redecode_yuv(stream_dir: str, out_path: str):
+def _i_dpb(x_hat):
+    """An I-frame's DPB as the server builds it: the recon, clamped."""
+    from dcvc_tpu_torch.serving.server import _i_dpb
+
+    return _i_dpb(x_hat)
+
+
+def _redecode_yuv(stream_dir: str, out_path: str, seq: str = CLI_SEQ,
+                  n_frames: int = CLI_FRAMES):
     """Decode the CLI's .bin files again in a fresh runtime pair (built as
-    the CLI builds them) and write the recon as the CLI's writer does."""
+    the CLI builds them) and write the recon as the CLI's writer does.
+    Returns the symbols the pair decoded, every plane in order."""
     import torch
 
     from dcvc_tpu_torch.models.registry import build
@@ -631,15 +678,15 @@ def _redecode_yuv(stream_dir: str, out_path: str):
                    me_warp_mode=me)
     irt.update()
     prt.update()
+    taps = [_SymbolTap(irt), _SymbolTap(prt)]
     writer = YUVWriter(out_path, WIDTH, HEIGHT)
     dpb = None
-    for i in range(CLI_FRAMES):
-        path = os.path.join(stream_dir, f"{CLI_SEQ}_{i}.bin")
+    for i in range(n_frames):
+        path = os.path.join(stream_dir, f"{seq}_{i}.bin")
         if i == 0:
             h, w, qc, qi, s = stream.decode_i(path)
-            x_hat = irt.decompress(s, h, w, qc, qi)["x_hat"].clamp(0.0, 1.0)
-            dpb = {"ref_frame": x_hat, "ref_feature": None,
-                   "ref_mv_feature": None, "ref_y": None, "ref_mv_y": None}
+            dpb = _i_dpb(irt.decompress(s, h, w, qc, qi)["x_hat"])
+            x_hat = dpb["ref_frame"]
         else:
             qc, qi, fi, s = stream.decode_p(path)
             dpb = dict(prt.decompress(dpb, s, HEIGHT, WIDTH, qc, qi, fi)["dpb"])
@@ -647,6 +694,7 @@ def _redecode_yuv(stream_dir: str, out_path: str):
         recon = x_hat[0, :, :HEIGHT, :WIDTH].permute(1, 2, 0).cpu().numpy()
         writer.write_one_frame(*color.ycbcr444_to_420(recon))
     writer.close()
+    return [sym for tap in taps for sym in tap.dec]
 
 
 def cli_phase(results: dict):
@@ -753,34 +801,6 @@ def _no_kernel_launched(path: str) -> dict:
     return counts
 
 
-def _conv_flops(module, fn) -> float:
-    """FLOPs of every convolution inside ``fn()``, reckoned from the
-    shapes: 2 x output elements x (input channels / groups) x kh x kw, and
-    for a transposed convolution 2 x input elements x (output channels /
-    groups) x kh x kw."""
-    import torch.nn as nn
-
-    total = [0.0]
-
-    def hook(conv, inputs, out):
-        kh, kw = conv.kernel_size
-        if isinstance(conv, nn.ConvTranspose2d):
-            total[0] += (2.0 * inputs[0].numel() * conv.out_channels
-                         / conv.groups * kh * kw)
-        else:
-            total[0] += (2.0 * out.numel() * conv.in_channels / conv.groups
-                         * kh * kw)
-
-    handles = [m.register_forward_hook(hook) for m in module.modules()
-               if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
-    try:
-        fn()
-    finally:
-        for h in handles:
-            h.remove()
-    return total[0]
-
-
 def _conv_shapes(averages) -> list:
     """Convolutions of a torch.profiler run recorded with shapes (its
     ``key_averages(group_by_input_shape=True)``), largest device time
@@ -847,6 +867,7 @@ def evc_phase(results: dict):
     from dcvc_tpu_torch.models.evc import build_evc
     from dcvc_tpu_torch.models.runtime import EvcCodecRuntime
     from dcvc_tpu_torch.ops.warp import get_padding_size
+    from dcvc_tpu_torch.tools.model_complexity import conv_flops
     from dcvc_tpu_torch.utils import stream
 
     _, pr, _, pb = get_padding_size(HEIGHT, WIDTH, 64)
@@ -902,8 +923,8 @@ def evc_phase(results: dict):
                     "conv_top3": _conv_shapes(averages)[:3]}
             tap.enc, tap.dec = [], []
             steps["profile_s"], t_step = time.time() - t_step, time.time()
-            flops = {"encode": _conv_flops(module, lambda: rt.compress(x, q)),
-                     "decode": _conv_flops(module, lambda: dec_rt.decompress(
+            flops = {"encode": conv_flops(module, lambda: rt.compress(x, q)),
+                     "decode": conv_flops(module, lambda: dec_rt.decompress(
                          runs[0][0][14:], hp, wp, q))}
             tap.enc, tap.dec = [], []
             steps["flops_s"] = time.time() - t_step
@@ -1425,9 +1446,8 @@ def _redecode_pngs(stream_dir: str, seq: str, i_model: str,
         path = os.path.join(stream_dir, f"{seq}_{i}.bin")
         if i == 0:
             h, w, qc, qi, s = stream.decode_i(path)
-            x_hat = irt.decompress(s, h, w, qc, qi)["x_hat"].clamp(0.0, 1.0)
-            dpb = {"ref_frame": x_hat, "ref_feature": None,
-                   "ref_mv_feature": None, "ref_y": None, "ref_mv_y": None}
+            dpb = _i_dpb(irt.decompress(s, h, w, qc, qi)["x_hat"])
+            x_hat = dpb["ref_frame"]
         else:
             qc, qi, fi, s = stream.decode_p(path)
             dpb = dict(prt.decompress(dpb, s, HEIGHT, WIDTH, qc, qi, fi)["dpb"])
@@ -2389,6 +2409,726 @@ def train_cli_phase(results: dict):
     results["train_cli"] = row
 
 
+# -- serving, the serve CLI, the pool and the tools (phases 28-31) ----------
+
+SERVE_ROUNDS = 3        # timed request rounds after the server's warm-up
+POOL_SEQS = ("pool_a", "pool_b")
+POOL_FRAMES = 2
+
+
+def _socket_path(tmp: str) -> str:
+    """A Unix socket path in ``tmp``; relative to the working directory
+    when the absolute one passes sockaddr_un's 108-byte limit."""
+    path = os.path.join(tmp, "s.sock")
+    if len(path.encode()) >= 100:
+        path = os.path.relpath(path)
+    if len(path.encode()) >= 100:
+        raise AssertionError(f"socket path too long for AF_UNIX: {path}")
+    return path
+
+
+_COUNTING_SITECUSTOMIZE = '''\
+"""Kernel launch counts of a process: at exit, a process that imported
+the port's kernels writes their K1 and K2 counters (zero at import, as no
+one resets them) to launches_<pid>.json beside this file. Then the
+installation's own sitecustomize, which this file shadows, runs as it
+would have."""
+import atexit
+import json
+import os
+import sys
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _dump():
+    bw = sys.modules.get("dcvc_tpu_torch.ops.block_warp")
+    bc = sys.modules.get("dcvc_tpu_torch.ops.band_copy")
+    if bw is None and bc is None:     # e.g. multiprocessing's tracker
+        return
+    counts = {"block_warp": bw.block_warp_nchw.launches if bw else 0,
+              "band_copy": bc.band_copy.launches if bc else 0}
+    with open(os.path.join(_HERE, f"launches_{os.getpid()}.json"), "w") as f:
+        json.dump(counts, f)
+
+
+atexit.register(_dump)
+_me = sys.modules[__name__]
+_path = sys.path[:]
+sys.path[:] = [p for p in sys.path if os.path.abspath(p or os.curdir) != _HERE]
+del sys.modules[__name__]
+try:
+    import sitecustomize  # noqa: F401
+except ImportError:
+    pass
+finally:
+    sys.path[:] = _path
+    sys.modules[__name__] = _me
+'''
+
+
+def _counting_pythonpath(tmp: str) -> str:
+    """A PYTHONPATH for processes whose kernel launches are counted: the
+    repo, then a directory whose sitecustomize writes each process's K1 and
+    K2 counts at its exit (read back by _process_counts), then the
+    inherited PYTHONPATH. Spawned children inherit it."""
+    d = os.path.join(tmp, "counted")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "sitecustomize.py"), "w") as f:
+        f.write(_COUNTING_SITECUSTOMIZE)
+    root = os.path.dirname(os.path.abspath(__file__))
+    return os.pathsep.join(p for p in (root, d, os.environ.get("PYTHONPATH"))
+                           if p)
+
+
+def _process_counts(tmp: str) -> dict:
+    """The launch counts that the processes started with
+    _counting_pythonpath(tmp) wrote at exit: per process that imported the
+    port's kernels, and summed."""
+    import glob
+
+    procs = []
+    for path in sorted(glob.glob(os.path.join(tmp, "counted",
+                                              "launches_*.json"))):
+        with open(path) as f:
+            procs.append(json.load(f))
+    return {"processes": procs,
+            "block_warp": sum(c["block_warp"] for c in procs),
+            "band_copy": sum(c["band_copy"] for c in procs)}
+
+
+def _hwc(x):
+    """An NCHW frame as an HWC f32 host array: an f32 payload."""
+    return x[0].permute(1, 2, 0).cpu().numpy()
+
+
+def _u8(x):
+    """A 1080p NCHW frame in [0, 1] as an HWC u8 array: the server's own
+    conversion of its recons."""
+    import numpy as np
+
+    from dcvc_tpu_torch.serving.server import CodecServer
+
+    return np.frombuffer(CodecServer._host_u8(x, HEIGHT, WIDTH),
+                         np.uint8).reshape(HEIGHT, WIDTH, 3)
+
+
+def _device_frame(x_hwc):
+    """An HWC host frame as the DC server takes it: edge-padded to 16 on
+    the host, then a fresh NCHW tensor on the card."""
+    import torch
+
+    from dcvc_tpu_torch.serving.server import _pad_hwc
+
+    t = torch.from_numpy(_pad_hwc(x_hwc, 16)).permute(2, 0, 1)[None]
+    return torch.empty(t.shape, device="cuda").copy_(t)
+
+
+def _host_ms(fn, n: int = 3) -> float:
+    """Median host-clock ms of ``n`` calls of ``fn`` after a warm-up, each
+    ended by a synchronize."""
+    import torch
+
+    fn()
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.time() - t) * 1e3)
+    return statistics.median(ts)
+
+
+def serving_phase(results: dict):
+    """The warm server in process: a CodecServer on the card serving from a
+    thread of this process (so K1's counter sees its launches), driven by
+    the port's CodecClient over a Unix socket; weights of the runtimes
+    phase (7), loaded from .pth files."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from dcvc_tpu_torch.ops import block_warp as bw
+    from dcvc_tpu_torch.serving import CodecClient, CodecServer, ServerError
+    from dcvc_tpu_torch.utils import stream
+
+    main = results["main_path"]
+    q = main["q_index"]
+    content = _content(1 + P_FRAMES)
+    frames = [_hwc(x) for x in content]
+    frames_u8 = [_u8(x) for x in content]
+    image_u8 = _u8(_image(HEIGHT, WIDTH, 61))
+    row = {"card": _card()}
+    walls, launches, mem = {}, {}, []
+
+    def call(what, fn):
+        k0 = bw.block_warp_nchw.launches
+        t = time.time()
+        out = fn()
+        walls.setdefault(what, []).append((time.time() - t) * 1e3)
+        launches.setdefault(what, set()).add(bw.block_warp_nchw.launches - k0)
+        return out
+
+    def allocated():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, sd in main["weights"].items():
+            torch.save(sd, os.path.join(tmp, f"{name}.pth"))
+        t = time.time()
+        server = CodecServer("intra_dc", "dmc_dc",
+                             model_path_i=os.path.join(tmp, "intra_dc.pth"),
+                             model_path_p=os.path.join(tmp, "dmc_dc.pth"))
+        row["build_s"] = time.time() - t
+        _reset_counts()
+        t = time.time()
+        server.warmup(HEIGHT, WIDTH)
+        row["warmup_s"] = time.time() - t
+        row["warmup_launches"] = _counts()
+        sock = _socket_path(tmp)
+        thread = threading.Thread(target=server.serve, args=(sock,),
+                                  daemon=True)
+        thread.start()
+        _reset_counts()
+        with CodecClient(sock, connect_timeout=60) as c:
+            call("ping", c.ping)
+            for _ in range(SERVE_ROUNDS):
+                cont, recon, _ = call("encode_image", lambda: c.encode_image(
+                    image_u8, q, False, True))
+                if not np.array_equal(call("decode_image", lambda: (
+                        c.decode_image(cont))), recon):
+                    raise AssertionError("decode_image != encode_image's "
+                                         "recon")
+                m0 = allocated()
+                sid = c.open_video()
+                conts, recons = [], []
+                for i, f in enumerate(frames_u8):
+                    kind = "pi"[i == 0]
+                    s, r, _ = call(f"encode_frame_{kind}", lambda: (
+                        c.encode_frame(sid, f, kind, i, q, False, True)))
+                    conts.append(s)
+                    recons.append(r)
+                m1 = allocated()
+                did = c.open_video()
+                for i, s in enumerate(conts):
+                    kind = "pi"[i == 0]
+                    r = call(f"decode_frame_{kind}", lambda: c.decode_frame(
+                        did, s, kind))
+                    if not np.array_equal(r, recons[i]):
+                        raise AssertionError(f"decode_frame {i}: recon "
+                                             f"differs from the encoder's")
+                m2 = allocated()
+                c.close_video(sid)
+                c.close_video(did)
+                mem.append((m0, m1, m2, allocated()))
+            # f32 payloads of the runtimes phase's frames: its containers
+            sid = c.open_video()
+            f32 = [call(f"encode_frame_{'pi'[i == 0]}_f32", lambda: (
+                c.encode_frame(sid, f, "pi"[i == 0], i, q, False)))[0]
+                for i, f in enumerate(frames)]
+            c.close_video(sid)
+            try:
+                c._call({"op": "no_such_op"})
+                raise AssertionError("an unknown op was answered ok")
+            except ServerError as e:
+                row["unknown_op_reply"] = str(e)
+            call("ping", c.ping)
+            # the socket alone: a ping carrying a 1080p frame's u8 / f32
+            # bytes (the server ignores them)
+            row["socket_upload_ms"] = {
+                what: _host_ms(lambda: c._call({"op": "ping"}, [payload]))
+                for what, payload in (("u8", frames_u8[1].tobytes()),
+                                      ("f32", frames[1].tobytes()))}
+            c.shutdown()
+        thread.join(timeout=60)
+        counts = _counts()
+        if thread.is_alive():
+            raise AssertionError("the serve loop did not stop on shutdown")
+
+    want = [stream.pack_i(HEIGHT, WIDTH, False, q, main["streams"][0]),
+            *main["streams"][1:]]
+    row["f32_containers_equal_runtimes_phase"] = f32 == want
+    row["container_bytes"] = [len(b) for b in f32]
+    row["u8_container_bytes"] = [len(b) for b in conts]
+    row["k1_launches_per_request"] = {k: sorted(v)
+                                      for k, v in launches.items()}
+    row["client_ms"] = {k: statistics.median(v) for k, v in walls.items()}
+    row["dpb_mb_per_session"] = statistics.median(
+        (m[1] - m[0]) / 1e6 for m in mem)
+    row["dpb_mb_two_sessions"] = statistics.median(
+        (m[2] - m[0]) / 1e6 for m in mem)
+    row["allocated_after_close_vs_before_open"] = max(
+        abs(m[3] - m[0]) / m[0] for m in mem)
+
+    # the server's conversions alone: payload -> device frame, recon -> u8
+    payload = frames_u8[1].tobytes()
+    x_host = server._host_frame(payload, HEIGHT, WIDTH, "u8")
+    x_dev = server._device_in(x_host)
+    row["conversion_ms"] = {
+        "host_frame_u8": _host_ms(lambda: server._host_frame(
+            payload, HEIGHT, WIDTH, "u8")),
+        "device_in": _host_ms(lambda: server._device_in(x_host)),
+        "host_u8": _host_ms(lambda: server._host_u8(x_dev, HEIGHT, WIDTH))}
+
+    # the same calls on the server's runtimes in process, on device tensors
+    # converted as the server converts them: the socket + conversion
+    # overhead is the client's wall time less these
+    irt, prt = server.i_rt, server.p_rt
+    rt_ms = {}
+
+    def timed(what, fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        rt_ms.setdefault(what, []).append((time.time() - t) * 1e3)
+        return out
+
+    def code_i(x):
+        comp = irt.compress(x, False, q)
+        return comp, irt.decompress(comp["bit_stream"], HEIGHT, WIDTH, False, q)
+
+    def code_p(x, dpb, i):
+        comp = prt.compress(x, dpb, False, q, i)
+        return comp, prt.decompress(dpb, comp["bit_stream"], HEIGHT, WIDTH,
+                                    False, q, i % 4)
+
+    dev = [_device_frame(f.astype(np.float32) / 255.0)
+           for f in [image_u8, *frames_u8]]
+    for _ in range(1 + SERVE_ROUNDS):             # a warm-up round first
+        comp, _ = timed("encode_image", lambda: code_i(dev[0]))
+        timed("decode_image", lambda: irt.decompress(
+            comp["bit_stream"], HEIGHT, WIDTH, False, q))
+        comp, dec = timed("encode_frame_i", lambda: code_i(dev[1]))
+        bits = [comp["bit_stream"]]
+        dpb = _i_dpb(dec["x_hat"])
+        for i in range(1, 1 + P_FRAMES):
+            comp, dec = timed("encode_frame_p", lambda: code_p(dev[1 + i],
+                                                               dpb, i))
+            bits.append(comp["bit_stream"])
+            dpb = dec["dpb"]
+        dec = timed("decode_frame_i", lambda: irt.decompress(
+            bits[0], HEIGHT, WIDTH, False, q))
+        dpb = _i_dpb(dec["x_hat"])
+        for i in range(1, 1 + P_FRAMES):
+            dpb = timed("decode_frame_p", lambda: prt.decompress(
+                dpb, bits[i], HEIGHT, WIDTH, False, q, i % 4))["dpb"]
+    per_round = {"encode_frame_p": P_FRAMES, "decode_frame_p": P_FRAMES}
+    row["runtime_ms"] = {k: statistics.median(v[per_round.get(k, 1):])
+                         for k, v in rt_ms.items()}
+    row["overhead_ms"] = {k: row["client_ms"][k] - row["runtime_ms"][k]
+                          for k in row["runtime_ms"]}
+    row["launches"] = counts
+    del server, irt, prt, dev, dpb, dec, comp, x_dev
+    print(f"serving {json.dumps(row)}", flush=True)
+    if not row["f32_containers_equal_runtimes_phase"]:
+        raise AssertionError(f"served containers differ from the runtimes "
+                             f"phase's: {[len(b) for b in want]} bytes "
+                             f"there, {row['container_bytes']} here")
+    expected = {"ping": [0], "encode_image": [0], "decode_image": [0],
+                "encode_frame_i": [0], "encode_frame_p": [2],
+                "decode_frame_i": [0], "decode_frame_p": [1],
+                "encode_frame_i_f32": [0], "encode_frame_p_f32": [2]}
+    if row["k1_launches_per_request"] != expected:
+        raise AssertionError(f"K1 launches per request "
+                             f"{row['k1_launches_per_request']}, expected "
+                             f"{expected}")
+    if counts["band_copy"]:
+        raise AssertionError("K2 launched on the serving path")
+    if not row["allocated_after_close_vs_before_open"] <= 0.01:
+        raise AssertionError(f"close_video kept device memory: "
+                             f"{row['allocated_after_close_vs_before_open']}")
+    results["serving"] = row
+
+
+def serve_cli_phase(results: dict):
+    """``python -m dcvc_tpu_torch.tools.serve`` in a process of its own on
+    the card (seed-0 weights, warmed at 1080p): an image and an I + 1 P
+    session coded there, then decoded here by this process's own runtimes
+    (the first stream written by one process and read by another)."""
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dcvc_tpu_torch.models.registry import build
+    from dcvc_tpu_torch.ops.warp import default_coding_warp_modes
+    from dcvc_tpu_torch.serving import CodecClient
+    from dcvc_tpu_torch.utils import stream
+
+    q = results["main_path"]["q_index"]
+    frames_u8 = [_u8(x) for x in _content(2)]
+    image_u8 = _u8(_image(HEIGHT, WIDTH, 62))
+    row = {"card": _card()}
+    torch.cuda.empty_cache()      # the card's memory for the other process
+    with tempfile.TemporaryDirectory() as tmp:
+        # the server process counts its own launches from its start (its
+        # warm-up included) to its exit
+        env = dict(os.environ, PYTHONPATH=_counting_pythonpath(tmp))
+        sock = _socket_path(tmp)
+        log_path = os.path.join(tmp, "serve.log")
+        t = time.time()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "dcvc_tpu_torch.tools.serve",
+                 "--socket", sock, "--i_frame_model", "intra_dc",
+                 "--p_frame_model", "dmc_dc", "--warmup", str(HEIGHT),
+                 str(WIDTH)], env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            with CodecClient(sock, connect_timeout=600) as c:
+                row["start_to_serving_s"] = time.time() - t
+                t = time.time()
+                img, img_recon, _ = c.encode_image(image_u8, q, False, True)
+                row["encode_image_ms"] = (time.time() - t) * 1e3
+                sid = c.open_video()
+                conts, recons = [], []
+                for i, f in enumerate(frames_u8):
+                    t = time.time()
+                    s, r, _ = c.encode_frame(sid, f, "pi"[i == 0], i, q,
+                                             False, True)
+                    row[f"encode_frame_{'pi'[i == 0]}_ms"] = \
+                        (time.time() - t) * 1e3
+                    conts.append(s)
+                    recons.append(r)
+                c.close_video(sid)
+                c.shutdown()
+            row["exit_code"] = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(log_path) as f:
+            log_text = f.read()
+        server_counts = _process_counts(tmp)
+    if row["exit_code"] != 0:
+        raise AssertionError(f"serve CLI exited {row['exit_code']}:\n"
+                             f"{log_text[-3000:]}")
+
+    # this process's own runtimes (seed 0, as the server built them)
+    od, mc, me = default_coding_warp_modes(torch.device("cuda"))
+    _, irt = build("intra_dc")
+    _, prt = build("dmc_dc", od_warp_mode=od, mc_warp_mode=mc,
+                   me_warp_mode=me)
+    irt.update()
+    prt.update()
+    taps = {"i": _SymbolTap(irt), "p": _SymbolTap(prt)}
+
+    def dev(u8):
+        return _device_frame(u8.astype(np.float32) / 255.0)
+
+    checks = []
+    _reset_counts()
+    comp = irt.compress(dev(image_u8), False, q)
+    h, w, qc, qi, s = stream.unpack_i(img)
+    dec = irt.decompress(s, h, w, qc, qi)
+    checks.append({"what": "image", "container_equal": img == stream.pack_i(
+        HEIGHT, WIDTH, False, q, comp["bit_stream"]),
+        "symbols_equal": taps["i"].equal(),
+        "gap": (comp["x_hat"] - dec["x_hat"]).abs().max().item(),
+        "recon_equal": np.array_equal(_u8(dec["x_hat"]), img_recon)})
+    comp = irt.compress(dev(frames_u8[0]), False, q)
+    h, w, qc, qi, s = stream.unpack_i(conts[0])
+    dec = irt.decompress(s, h, w, qc, qi)
+    dpb_enc = _i_dpb(comp["x_hat"])
+    dpb_dec = _i_dpb(dec["x_hat"])
+    checks.append({"what": "frame 0 (I)", "container_equal": conts[0] ==
+                   stream.pack_i(HEIGHT, WIDTH, False, q, comp["bit_stream"]),
+                   "symbols_equal": taps["i"].equal(),
+                   "gap": _dpb_gap(dpb_enc, dpb_dec),
+                   "recon_equal": np.array_equal(_u8(dpb_dec["ref_frame"]),
+                                                 recons[0])})
+    comp = prt.compress(dev(frames_u8[1]), dpb_enc, False, q, 1)
+    qc, qi, fi, s = stream.unpack_p(conts[1])
+    dec = prt.decompress(dpb_dec, s, HEIGHT, WIDTH, qc, qi, fi)
+    checks.append({"what": "frame 1 (P)", "container_equal": conts[1] ==
+                   stream.pack_p(comp["bit_stream"], False, q, 1),
+                   "symbols_equal": taps["p"].equal(),
+                   "gap": _dpb_gap(comp["dpb"], dec["dpb"]),
+                   "recon_equal": np.array_equal(
+                       _u8(dec["dpb"]["ref_frame"].clamp(0.0, 1.0)),
+                       recons[1])})
+    local = _counts()
+    row["launches"] = {k: server_counts[k] for k in ("block_warp",
+                                                     "band_copy")}
+    row["server_processes_counted"] = len(server_counts["processes"])
+    # what the same calls launch in process (phase 28): the warm-up's plus
+    # 2 per P encode_frame
+    serving = results["serving"]
+    row["k1_launches_in_process"] = (
+        serving["warmup_launches"]["block_warp"]
+        + serving["k1_launches_per_request"]["encode_frame_p"][0])
+    row["local_verify_launches"] = local
+    row["checks"] = checks
+    row["bytes"] = [len(img)] + [len(b) for b in conts]
+    print(f"serve cli {json.dumps(row)}", flush=True)
+    for ch in checks:
+        if not (ch["container_equal"] and ch["symbols_equal"]
+                and ch["gap"] == 0.0 and ch["recon_equal"]):
+            raise AssertionError(f"cross-process decode: {ch}")
+    if local["block_warp"] != 2 or local["band_copy"]:
+        raise AssertionError(f"in-process re-code launched {local}")
+    if (row["server_processes_counted"] != 1 or row["launches"] != {
+            "block_warp": row["k1_launches_in_process"], "band_copy": 0}):
+        raise AssertionError(f"the server process launched {server_counts}, "
+                             f"expected K1 {row['k1_launches_in_process']} "
+                             f"and no K2")
+    results["serve_cli"] = row
+
+
+_RANK_SCRIPT = """
+import json, os, sys
+sys.path.insert(0, os.environ["REPO_ROOT"])
+import torch.distributed as dist
+from dcvc_tpu_torch.parallel.jobs import (WorkItem, maybe_init_distributed,
+                                          run_sharded)
+
+rank, world = maybe_init_distributed()
+assert world == 2, world
+ranks = [None, None]
+dist.all_gather_object(ranks, rank)
+assert sorted(ranks) == [0, 1], ranks
+items = [WorkItem(n, r, {}) for n, r in json.loads(os.environ["ITEMS"])]
+out = os.environ["OUT_DIR"]
+run_sharded(items, lambda it: {"rank": rank}, out_dir=out)
+dist.barrier()
+merged = run_sharded(items, lambda it: {"rank": rank}, out_dir=out)
+if rank == 0:
+    with open(os.path.join(out, "merged.json"), "w") as f:
+        json.dump(merged, f)
+dist.destroy_process_group()
+"""
+
+
+def _gloo_run_sharded(tmp: str, items: list) -> dict:
+    """run_sharded in two spawned processes joined by a gloo group."""
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(tmp, "shards")
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   RANK=str(rank), WORLD_SIZE="2", OUT_DIR=out,
+                   ITEMS=json.dumps(items),
+                   REPO_ROOT=os.path.dirname(os.path.abspath(__file__)))
+        procs.append(subprocess.Popen([sys.executable, "-c", _RANK_SCRIPT],
+                                      env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT))
+    try:
+        outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"gloo rank exited {p.returncode}:\n"
+                                 f"{o[-3000:]}")
+    with open(os.path.join(out, "merged.json")) as f:
+        return json.load(f)
+
+
+def pool_phase(results: dict):
+    """The video CLI with --worker_num 2 on the card (both workers on
+    cuda:0, spawned), against the same items coded in this process; every
+    .bin a worker wrote decoded here; then run_sharded across two gloo
+    ranks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dcvc_tpu_torch.runner.video import load_dataset_config
+    from dcvc_tpu_torch.tools import test_video
+
+    q = results["main_path"]["q_index"]
+    row = {"card": _card()}
+    torch.cuda.empty_cache()      # the card's memory for the workers
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, name in enumerate(POOL_SEQS):
+            _write_yuv_sequence(os.path.join(tmp, name + ".yuv"), POOL_FRAMES,
+                                mirror=bool(i))
+        cfg = {"root_path": tmp, "test_classes": {"smoke": {
+            "test": 1, "base_path": "", "src_type": "yuv420",
+            "sequences": {name: {"width": WIDTH, "height": HEIGHT,
+                                 "frames": POOL_FRAMES, "gop": 32}
+                          for name in POOL_SEQS}}}}
+        cfg_path = os.path.join(tmp, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+
+        def args(tag, workers):
+            return ["--test_config", cfg_path, "--force_frame_num",
+                    str(POOL_FRAMES), "--rate_num", "1", "--q_indexes",
+                    str(q), "--write_stream", "1", "--verbose", "2",
+                    "--worker_num", str(workers), "--stream_path",
+                    os.path.join(tmp, tag), "--output_path",
+                    os.path.join(tmp, tag + ".json"),
+                    "--decoded_frame_path", os.path.join(tmp, tag + "_dec")]
+
+        # the spawned workers inherit this PYTHONPATH and count their own
+        # launches from their start to their exit
+        pythonpath = os.environ.get("PYTHONPATH")
+        os.environ["PYTHONPATH"] = _counting_pythonpath(tmp)
+        _reset_counts()
+        t = time.time()
+        try:
+            pool = test_video.main(args("pool", 2))
+        finally:
+            if pythonpath is None:
+                del os.environ["PYTHONPATH"]
+            else:
+                os.environ["PYTHONPATH"] = pythonpath
+        row["pool_wall_s"] = time.time() - t
+        row["smoke_process_launches_during_pool"] = _counts()
+        worker_counts = _process_counts(tmp)
+
+        # the same items in this process, on runtimes built as the CLI
+        # builds them, with their coders tapped
+        one_args = test_video.parse_args(args("one", 1))
+        i_rt, p_rt, pad = test_video._build_runtimes(one_args,
+                                                     torch.device("cuda"))
+        taps = [_SymbolTap(i_rt), _SymbolTap(p_rt)]
+        one, enc_syms = {}, {}
+        _reset_counts()
+        t = time.time()
+        for seq in load_dataset_config(cfg):
+            one[seq.name] = {"rate_0": test_video._eval_one(
+                i_rt, p_rt, pad, seq, q, one_args)}
+            enc_syms[seq.name] = np.concatenate(
+                [a for tap in taps for a in tap.enc])
+            for tap in taps:
+                tap.enc, tap.dec = [], []
+        row["in_process_wall_s"] = time.time() - t
+        counts = _counts()
+        del i_rt, p_rt, taps
+
+        row["results_keys_equal"] = (
+            set(pool) == set(one) == set(POOL_SEQS)
+            and all(set(pool[s]) == {"rate_0"}
+                    and set(pool[s]["rate_0"]) == _jax_summary_keys()
+                    for s in POOL_SEQS))
+        row["bpp"] = {s: [pool[s]["rate_0"]["frame_bpp"],
+                          one[s]["rate_0"]["frame_bpp"]] for s in POOL_SEQS}
+        row["bpp_equal"] = all(a == b for a, b in row["bpp"].values())
+        bins = {}
+        for tag in ("pool", "one"):
+            bins[tag] = [open(os.path.join(tmp, tag, f"{s}_{i}.bin"),
+                              "rb").read()
+                         for s in POOL_SEQS for i in range(POOL_FRAMES)]
+        row["bins_equal"] = bins["pool"] == bins["one"]
+        row["bin_bytes"] = [len(b) for b in bins["pool"]]
+        checks = {}
+        for s in POOL_SEQS:
+            dec = _redecode_yuv(os.path.join(tmp, "pool"),
+                                os.path.join(tmp, "redecoded", s), s,
+                                POOL_FRAMES)
+            with open(os.path.join(tmp, "pool_dec", s + ".yuv"), "rb") as f:
+                worker_yuv = f.read()
+            with open(os.path.join(tmp, "redecoded", s + ".yuv"), "rb") as f:
+                here_yuv = f.read()
+            checks[s] = {
+                "symbols_equal": np.array_equal(np.concatenate(dec),
+                                                enc_syms[s]),
+                "recon_yuv_equal": worker_yuv == here_yuv and len(here_yuv)
+                == POOL_FRAMES * HEIGHT * WIDTH * 3 // 2}
+        row["cross_process_decode"] = checks
+
+        items = [[s, r] for s in POOL_SEQS for r in range(2)] + [["extra", 0]]
+        t = time.time()
+        merged = _gloo_run_sharded(tmp, items)
+        row["gloo_wall_s"] = time.time() - t
+    row["gloo_merged"] = merged
+    row["launches"] = {k: worker_counts[k] for k in ("block_warp",
+                                                     "band_copy")}
+    row["launches_per_worker"] = worker_counts["processes"]
+    row["in_process_launches"] = counts
+    print(f"pool {json.dumps(row)}", flush=True)
+    if not (row["results_keys_equal"] and row["bpp_equal"]
+            and row["bins_equal"]):
+        raise AssertionError("the pool's results or streams differ from "
+                             "the single-process run's")
+    for s, ch in checks.items():
+        if not all(ch.values()):
+            raise AssertionError(f"pool stream {s} decoded here: {ch}")
+    want = {f"{s}/rate_{r}": i % 2 for i, (s, r) in enumerate(items)}
+    if {k: v.get("rank") for k, v in merged.items()} != want:
+        raise AssertionError(f"gloo run_sharded merged {merged}")
+    if counts["block_warp"] != len(POOL_SEQS) * 2 or counts["band_copy"]:
+        raise AssertionError(f"in-process pool items launched {counts}")
+    if any(row["smoke_process_launches_during_pool"].values()):
+        raise AssertionError("the pool launched kernels in this process")
+    # a chunk goes to whichever worker is free: one worker may code both
+    if not 1 <= len(worker_counts["processes"]) <= 2 \
+            or row["launches"] != counts:
+        raise AssertionError(f"the pool's workers launched {worker_counts}, "
+                             f"the same items in process {counts}")
+    results["pool"] = row
+
+
+def tools_phase(results: dict):
+    """model_complexity for intra_dc and dmc_dc at 1088 x 1920 on the card;
+    data_to_png on the smoke's YUV sequence."""
+    import tempfile
+
+    import numpy as np
+
+    from dcvc_tpu_torch.tools import data_to_png, model_complexity
+    from dcvc_tpu_torch.utils import color
+    from dcvc_tpu_torch.utils.png import read_png
+    from dcvc_tpu_torch.utils.video_io import YUVReader
+
+    row = {"card": _card(), "model_complexity": {}}
+    h = -(-HEIGHT // 64) * 64                   # 1080 -> 1088
+    _reset_counts()
+    for name in ("intra_dc", "dmc_dc"):
+        k0 = _counts()
+        t = time.time()
+        r = model_complexity.complexity(name, h, WIDTH)
+        r["wall_s"] = time.time() - t
+        r["launches"] = {k: v - k0[k] for k, v in _counts().items()}
+        r["conv_gflops"] = r.pop("conv_flops") / 1e9
+        row["model_complexity"][name] = r
+    counts = _counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, CLI_SEQ + ".yuv")
+        _write_yuv_sequence(src, CLI_FRAMES)
+        t = time.time()
+        n = data_to_png.convert_one_seq_to_png(src, WIDTH, HEIGHT,
+                                               os.path.join(tmp, "png"))
+        row["data_to_png_s"] = time.time() - t
+        reader = YUVReader(src, WIDTH, HEIGHT)
+        equal = []
+        for i in range(n):
+            want = np.clip(np.rint(color.ycbcr420_to_rgb(
+                *reader.read_one_frame()) * 255.0), 0, 255).astype(np.uint8)
+            got = read_png(os.path.join(tmp, "png", f"im{i + 1:05d}.png"))
+            equal.append(bool(np.array_equal(got, want)))
+        reader.close()
+    row["data_to_png_frames"] = n
+    row["launches"] = counts
+    print(f"tools {json.dumps(row)}", flush=True)
+    if n != CLI_FRAMES or not all(equal):
+        raise AssertionError(f"data_to_png: {n} frames, pixels equal {equal}")
+    mc = row["model_complexity"]
+    if (mc["intra_dc"]["launches"]["block_warp"]
+            or mc["dmc_dc"]["launches"]["block_warp"] != 2
+            or counts["band_copy"]):
+        raise AssertionError(f"model_complexity launches {counts}")
+    if not all(r["params"] > 0 and r["conv_gflops"] > 0 for r in mc.values()):
+        raise AssertionError(f"model_complexity: {mc}")
+    results["tools"] = row
+
+
 def main() -> int:
     import torch
 
@@ -2424,7 +3164,8 @@ def main() -> int:
               zoo_phase, tcm_phase, tcm_block_phase, gen1_phase,
               zoo_tcm_cli_phase, train_card_cpu_phase, train_fit_phase,
               train_remat_phase, train_intra_phase, train_ckpt_phase,
-              train_cli_phase]
+              train_cli_phase, serving_phase, serve_cli_phase, pool_phase,
+              tools_phase]
     for i, phase in enumerate(phases):
         t = time.time()
         phase(results)
@@ -2462,6 +3203,13 @@ def main() -> int:
                 for k in ("card_cpu", "fit", "remat", "intra", "cli")} | {
             "training_checkpoint_coding":
                 results["train_ckpt"]["launches"][kernel]}
+    def serving_launches(kernel):
+        """Launches on the serving, serve-CLI, pool and tools paths; the
+        server process and the pool's workers count their own and write
+        them at exit."""
+        return {path: results[ph]["launches"][kernel] for path, ph in (
+            ("serving", "serving"), ("serve_cli", "serve_cli"),
+            ("pool", "pool"), ("model_complexity", "tools"))}
     hem_k1 = results["hem_block"]["k1_64ch_full_res"]
     gen1_k1 = results["gen1_block"]["k1_64ch_full_res"]
     print(json.dumps({"kernels": [{
@@ -2476,7 +3224,8 @@ def main() -> int:
             "hem_block_mc": results["hem_block"]["launches"]["block_warp"],
             "tcm_block_mc": results["tcm_block"]["launches"]["block_warp"],
             "gen1_block_mc": results["gen1_block"]["launches"]["block_warp"],
-            **training_launches("block_warp")},
+            **training_launches("block_warp"),
+            **serving_launches("block_warp")},
         "max_abs_err": max(r["max_abs_err"] for n, r in k1.items()
                            if n.endswith("f32")),
         "max_abs_err_bf16": max(r["max_abs_err"] for n, r in k1.items()
@@ -2518,7 +3267,8 @@ def main() -> int:
                              ["band_copy"],
                              "gen1_block_mc": results["gen1_block"]
                              ["launches"]["band_copy"],
-                             **training_launches("band_copy")},
+                             **training_launches("band_copy"),
+                             **serving_launches("band_copy")},
         "max_abs_err": max(r["max_abs_err"]
                            for r in results["band_copy"].values()),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],

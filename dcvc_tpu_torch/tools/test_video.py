@@ -17,7 +17,9 @@ I-frame models: ``intra_dc``, the EVC grid ``evc_XY``, ``evc_scalable``,
 ``canfvc_dmc``, ``dmc_tcm`` and ``dcvc_gen1``. A write-stream pair pads
 alike: ``intra_dc`` + ``dmc_dc`` pad to 16, every other pair to 64.
 Runs on the card unless ``--device cpu``; without a card it exits with the
-device message. Weights are seeded random unless ``--model_path_i`` /
+device message. ``--worker_num N`` codes the items in N spawned processes,
+worker ``w`` on ``cuda:{w % device count}`` (or the CPU with ``--device
+cpu``). Weights are seeded random unless ``--model_path_i`` /
 ``--model_path_p`` name a published ``.pth`` / ``.pth.tar`` or a JAX-package
 ``.npz``.
 """
@@ -30,6 +32,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 
 def parse_args(argv=None):
@@ -59,8 +62,11 @@ def parse_args(argv=None):
     p.add_argument("--output_path", type=str, default="out/results.json")
     p.add_argument("--verbose", type=int, default=1)
     p.add_argument("--worker_num", type=int, default=1,
-                   help="process pool over (sequence x rate) items: not "
-                        "ported yet, only 1 is accepted")
+                   help="process pool over (sequence x rate) items "
+                        "(reference test_video.py:276-338): each spawned "
+                        "worker builds its own runtimes once and codes a "
+                        "round-robin share; worker w runs on cuda:{w %% "
+                        "device count}, or on the CPU with --device cpu")
     p.add_argument("--chroma_upsample_order", type=int, default=0,
                    choices=[0, 1],
                    help="420->444 model-input chroma upsample: 0 nearest "
@@ -82,12 +88,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _build_runtimes(args, device):
-    """Build and adapt the I/P runtimes."""
-    from ..models.registry import build
-    from ..ops.warp import default_coding_warp_modes
-    from ..runner.adapters import adapt_i_runtime, adapt_p_runtime, pad_for_model
-    from ..utils.checkpoint import load_state_dict
+def _pad_multiple(args) -> int:
+    """The frames' pad-to-multiple; exits on a write-stream pair of two
+    padding generations."""
+    from ..runner.adapters import pad_for_model
 
     pad_i = pad_for_model(args.i_frame_model)
     pad_p = pad_for_model(args.p_frame_model)
@@ -100,6 +104,17 @@ def _build_runtimes(args, device):
                  f"padding generation ({args.i_frame_model} pads to {pad_i}, "
                  f"{args.p_frame_model} to {pad_p}); pick a matching intra "
                  f"or use --force_intra")
+    return pad_multiple
+
+
+def _build_runtimes(args, device):
+    """Build and adapt the I/P runtimes."""
+    from ..models.registry import build
+    from ..ops.warp import default_coding_warp_modes
+    from ..runner.adapters import adapt_i_runtime, adapt_p_runtime
+    from ..utils.checkpoint import load_state_dict
+
+    pad_multiple = _pad_multiple(args)
 
     def weights(path, model):
         return load_state_dict(path, model) if path else None
@@ -168,6 +183,70 @@ def _eval_one(i_rt, p_rt, pad_multiple, seq, q, args):
     return run_sequence(i_rt, p_rt, seq, cfg, q_index_i=q, q_index_p=q)
 
 
+def _pool_worker(args_dict, device, names_rates):
+    """One ``--worker_num`` pool process: builds the runtimes once on
+    ``device`` and codes a round-robin share of (sequence, rate) items; an
+    item's error is recorded in its place (as ``parallel/jobs.run_sharded``
+    does) instead of ending the pool."""
+    from ..device import resolve_device
+    from ..runner.video import load_dataset_config
+
+    args = argparse.Namespace(**args_dict)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    with open(args.test_config) as f:
+        specs = {s.name: s for s in load_dataset_config(json.load(f))}
+    i_rt, p_rt, pad_multiple = _build_runtimes(args, dev)
+    q_indexes = _q_indexes(args)
+    out = []
+    for name, rate_idx in names_rates:
+        try:
+            s = _eval_one(i_rt, p_rt, pad_multiple, specs[name],
+                          q_indexes[rate_idx], args)
+        except Exception as e:  # noqa: BLE001
+            s = {"error": repr(e)}
+        out.append((name, rate_idx, s))
+    return out
+
+
+def _run_pool(args, device, specs, q_indexes) -> dict:
+    """The ``--worker_num > 1`` pool: spawned processes (CUDA cannot
+    fork), round-robin ``shard_work`` chunks, results merged in the main
+    process."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    from ..parallel.jobs import shard_work
+
+    items = [(seq.name, r) for seq in specs for r in range(len(q_indexes))]
+    n = args.worker_num
+    if device.type == "cuda":
+        cards = torch.cuda.device_count()
+        devices = [f"cuda:{w % cards}" for w in range(n)]
+    else:
+        devices = ["cpu"] * n
+    chunks = [(devices[w], shard_work(items, w, n)) for w in range(n)]
+    results = {}
+    t0 = time.time()
+    with cf.ProcessPoolExecutor(max_workers=n,
+                                mp_context=mp.get_context("spawn")) as ex:
+        futs = [ex.submit(_pool_worker, vars(args), dev, chunk)
+                for dev, chunk in chunks if chunk]
+        for f in futs:
+            for name, rate_idx, summary in f.result():
+                results.setdefault(name, {})[f"rate_{rate_idx}"] = summary
+                if args.verbose and "error" not in summary:
+                    _print_item(t0, name, rate_idx, summary)
+    return results
+
+
+def _print_item(t0, name, rate_idx, summary):
+    print(f"[{time.time() - t0:7.1f}s] {name} rate {rate_idx} "
+          f"bpp={summary['ave_all_frame_bpp']:.4f} "
+          f"psnr={summary['ave_all_frame_psnr']:.3f}")
+
+
 def main(argv=None) -> dict:
     """Runs the CLI; returns the results dict it also writes as JSON."""
     args = parse_args(argv)
@@ -175,9 +254,6 @@ def main(argv=None) -> dict:
     from ..runner.video import load_dataset_config
     from ..utils.results import dump_json
 
-    if args.worker_num > 1:
-        sys.exit("error: --worker_num > 1 is not ported yet (ROADMAP Queue 1: "
-                 "the process pool over sequence x rate items)")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -185,6 +261,12 @@ def main(argv=None) -> dict:
     with open(args.test_config) as f:
         specs = load_dataset_config(json.load(f))
     q_indexes = _q_indexes(args)
+    if args.worker_num > 1:
+        _pad_multiple(args)      # refuse a mismatched pair before spawning
+        results = _run_pool(args, device, specs, q_indexes)
+        dump_json(results, args.output_path)
+        print(f"results -> {args.output_path}")
+        return results
     i_rt, p_rt, pad_multiple = _build_runtimes(args, device)
 
     results = {}
@@ -194,9 +276,7 @@ def main(argv=None) -> dict:
             summary = _eval_one(i_rt, p_rt, pad_multiple, seq, q, args)
             results.setdefault(seq.name, {})[f"rate_{rate_idx}"] = summary
             if args.verbose:
-                print(f"[{time.time() - t0:7.1f}s] {seq.name} rate {rate_idx} "
-                      f"bpp={summary['ave_all_frame_bpp']:.4f} "
-                      f"psnr={summary['ave_all_frame_psnr']:.3f}")
+                _print_item(t0, seq.name, rate_idx, summary)
 
     dump_json(results, args.output_path)
     print(f"results -> {args.output_path}")

@@ -157,16 +157,18 @@ def test_cli_pth_in_process_codes_the_same_bytes(case):
 
 
 def test_cli_refuses_what_is_not_ported(case, capsys):
-    """What the CLI still refuses: a worker pool, a write-stream pair of
-    two padding generations, an unknown model. (The zoo and TCM refusals
-    it once checked are gone: those models code, in
-    ``test_cli_zoo_tcm_pair_writes_the_jax_streams``.)"""
+    """What the CLI still refuses: a write-stream pair of two padding
+    generations (in the worker pool too, before it spawns), an unknown
+    model. (The zoo and TCM refusals it once checked are gone: those models
+    code, in ``test_cli_zoo_tcm_pair_writes_the_jax_streams``; so is the
+    worker pool's, ``tests/test_torch_port_parallel.py``.)"""
     d = case["dir"]
     base = ["--device", "cpu", "--test_config", str(d / "cfg.json"),
             "--rate_num", "1", "--q_indexes", "0", "--force_frame_num", "1",
             "--output_path", str(d / "x.json")]
-    with pytest.raises(SystemExit, match="worker_num"):
-        cli.main(base + ["--worker_num", "2"])
+    with pytest.raises(SystemExit, match="padding generation"):
+        cli.main(base + ["--worker_num", "2", "--p_frame_model", "dmc_hem",
+                         "--write_stream", "1"])
     with pytest.raises(SystemExit, match="padding generation"):
         cli.main(base + ["--p_frame_model", "dmc_hem", "--write_stream", "1"])
     with pytest.raises(SystemExit, match="padding generation"):

@@ -458,3 +458,51 @@ def test_train_step_on_card_matches_cpu(cuda):
         den = g.norm().item()
         gap = (card[1][n] - g).norm().item()
         assert gap <= 1e-3 * den, (n, gap, den)
+
+
+def test_server_thread_codes_i_and_p_on_card(cuda, tmp_path):
+    """The warm server on the card, serving from a thread of this process:
+    an I + P session at 256 x 256 whose decode session gives the encoder's
+    u8 recons byte for byte; K1 launches twice per P encode_frame (compress
+    and the DPB refresh) and once per P decode_frame; closing both sessions
+    gives their DPBs back."""
+    import threading
+
+    import numpy as np
+
+    from dcvc_tpu_torch.serving import CodecClient, CodecServer
+
+    server = CodecServer("intra_dc", "dmc_dc")
+    server.warmup(256, 256)
+    sock = str(tmp_path / "s.sock")
+    thread = threading.Thread(target=server.serve, args=(sock,), daemon=True)
+    thread.start()
+    rng = np.random.default_rng(0)
+    base = rng.random((40, 40, 3))
+    frames = [(np.kron(np.roll(base, i, axis=1), np.ones((8, 8, 1)))[:256, :256]
+               * 255).astype(np.uint8) for i in range(2)]
+    torch.cuda.synchronize()
+    before_mem = torch.cuda.memory_allocated()
+    with CodecClient(sock) as c:
+        sid = c.open_video()
+        streams, recons, launches = [], [], []
+        for i, f in enumerate(frames):
+            k0 = bw.block_warp_nchw.launches
+            s, r, _ = c.encode_frame(sid, f, kind="pi"[i == 0], frame_idx=i,
+                                     q_index=2, want_recon=True)
+            launches.append(bw.block_warp_nchw.launches - k0)
+            streams.append(s)
+            recons.append(r)
+        did = c.open_video()
+        for i, s in enumerate(streams):
+            k0 = bw.block_warp_nchw.launches
+            np.testing.assert_array_equal(
+                c.decode_frame(did, s, kind="pi"[i == 0]), recons[i])
+            launches.append(bw.block_warp_nchw.launches - k0)
+        c.close_video(sid)
+        c.close_video(did)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() <= before_mem * 1.01
+        c.shutdown()
+    thread.join(timeout=60)
+    assert launches == [0, 2, 0, 1]
