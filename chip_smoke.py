@@ -138,17 +138,32 @@ no result line):
  31. model_complexity for intra_dc and dmc_dc at 1088 x 1920 (parameters,
      convolution GFLOPs, wall); data_to_png on a 1080p YUV sequence
      (pixels equal the direct conversion);
- 32. one JSON line per kernel, then the result line.
+ 32. the dtype option: IntraNoAR (N=256) + DMC built through the registry
+     with dtype=torch.bfloat16 (7's seeds) code I + 2 P of 7's content at
+     1080p padded to 1088, aligned_enc off (the default), then on: symbols
+     equal in every plane, every recon / DPB gap <= 4e-3 and no value above
+     0.05 (tools/check_tpu_roundtrip.py's TOL and DESYNC), the encoder's
+     coding indexes that differ from the decoder's counted; K1 1 + 1 per
+     P-frame off (2 + 1 on: the aligned replay warps again), and against
+     its plain version (atol 0) on the bf16 maps the first P compress gave
+     it, timed there; then bf16 against f32 on the same weights and
+     frames (I and P encode / decode ms, median of 3 after a warm-up;
+     bytes, PSNR, peak memory; one profiled P-frame each: device ms, busy
+     share, top kernels, cuDNN's FFT kernels); then evc_SS and evc_LL in
+     bf16 on 10's image (warm-up + 3 round trips, the same limits, peak
+     memory beside 10's f32 figures, one profiled evc_LL encode);
+ 33. one JSON line per kernel, then the result line.
 
-Every path (7 to 31) runs with the kernels' launch counts set to 0 just
+Every path (7 to 32) runs with the kernels' launch counts set to 0 just
 before it and read just after. The server process of 29 and the pool's
 workers of 30 cannot report their counts: K1's are given as what the
 same calls launch in process (28, and 30's in-process run). Paths 7, 8, 9, 14, 19, 20's block-mc
-frame and 26 fail if they launched none of their kernels (14 and 19: not
-exactly 4 + 4; 20: not 1 + 1); paths 10-13, 15-18, 20's exact frames, 21
-and the training paths 22-25 and 27 have no kernel (convolutions,
-elementwise ops, host rANS and host AR loops only) and fail if either
-count is not 0. Launches made to compare a kernel with its plain version
+frame, 26 and 32's DC runtimes fail if they launched none of their
+kernels (14 and 19: not exactly 4 + 4; 20: not 1 + 1; 32: not 1 + 1 per
+P-frame, 2 + 1 with aligned_enc); paths 10-13, 15-18, 20's exact frames,
+21, 32's EVC and the training paths 22-25 and 27 have no kernel
+(convolutions, elementwise ops, host rANS and host AR loops only) and
+fail if either count is not 0. Launches made to compare a kernel with its plain version
 are not counted.
 
 Imports nothing of JAX. Needs one card; without one it exits non-zero.
@@ -463,28 +478,38 @@ class _SymbolTap:
 
         enc_coder = rt.entropy_coder
         dec_coder = (dec_rt or rt).entropy_coder
-        self.enc, self.dec = [], []
+        self.enc, self.dec, self.enc_idx, self.dec_idx = [], [], [], []
         encode, decode = enc_coder.encode_with_indexes, dec_coder.decode_stream
 
         def tap_encode(symbols, indexes, table):
             self.enc.append(np.clip(np.asarray(symbols).reshape(-1), -30000,
                                     30000).astype(np.int16))
+            self.enc_idx.append(np.asarray(indexes).reshape(-1))
             return encode(symbols, indexes, table)
 
         def tap_decode(indexes, table):
             out = decode(indexes, table)
             self.dec.append(np.asarray(out).reshape(-1).astype(np.int16))
+            self.dec_idx.append(np.asarray(indexes).reshape(-1))
             return out
 
         enc_coder.encode_with_indexes = tap_encode
         dec_coder.decode_stream = tap_decode
+
+    def index_mismatches(self) -> int:
+        """Coding indexes the encoder used that differ from the decoder's
+        (call before ``equal``, which clears both)."""
+        import numpy as np
+
+        a, b = np.concatenate(self.enc_idx), np.concatenate(self.dec_idx)
+        return int((a != b).sum()) if a.shape == b.shape else a.size
 
     def equal(self) -> bool:
         import numpy as np
 
         ok = bool(self.enc) and np.array_equal(np.concatenate(self.enc),
                                                np.concatenate(self.dec))
-        self.enc, self.dec = [], []
+        self.enc, self.dec, self.enc_idx, self.dec_idx = [], [], [], []
         return ok
 
 
@@ -826,7 +851,7 @@ def _image(h: int, w: int, seed: int):
     return (big + detail).clamp(0, 1)
 
 
-def _evc_roundtrip(rt, dec_rt, tap, x, h, w, path):
+def _evc_roundtrip(rt, dec_rt, tap, x, h, w, path, tol=F32_TOL):
     """compress -> encode_i_ushort_q -> decode_i_ushort_q -> decompress by
     ``dec_rt``; returns (bytes, encode ms, decode ms, recon gap, the
     compress output)."""
@@ -847,8 +872,8 @@ def _evc_roundtrip(rt, dec_rt, tap, x, h, w, path):
     dec_ms = (time.time() - t) * 1e3
     if not tap.equal():
         raise AssertionError(f"{path}: rANS symbols differ")
-    gap = (comp["x_hat"] - dec["x_hat"]).abs().max().item()
-    if not (gap <= F32_TOL and torch.isfinite(dec["x_hat"]).all()
+    gap = (comp["x_hat"].float() - dec["x_hat"].float()).abs().max().item()
+    if not (gap <= tol and torch.isfinite(dec["x_hat"]).all()
             and dec["x_hat"].shape == x.shape):
         raise AssertionError(f"{path}: recon gap {gap}")
     with open(path, "rb") as f:
@@ -3129,6 +3154,324 @@ def tools_phase(results: dict):
     results["tools"] = row
 
 
+BF16_TOL, BF16_DESYNC = 4e-3, 0.05   # tools/check_tpu_roundtrip.py:37-38
+BF16_SEEDS = {"intra_dc": 0, "dmc_dc": 1}   # the runtimes phase's (7)
+
+
+def _bf16_gaps(pairs) -> tuple:
+    """Max abs gap and the count of values above BF16_DESYNC over (encoder,
+    decoder) tensor pairs."""
+    worst, n = 0.0, 0
+    for a, b in pairs:
+        d = (a.float() - b.float()).abs()
+        worst = max(worst, d.max().item())
+        n += int((d > BF16_DESYNC).sum())
+    return worst, n
+
+
+def _psnr(x_hat, x) -> float:
+    import torch.nn.functional as F
+
+    mse = F.mse_loss(x_hat[:, :, :HEIGHT, :WIDTH].float(), x).item()
+    return 10 * math.log10(1.0 / max(mse, 1e-12))
+
+
+def _dc_runtimes(dtype):
+    """IntraDcRuntime + DmcRuntime through the registry, seeds of 7."""
+    from dcvc_tpu_torch.models.registry import build
+
+    rts = []
+    for name in ("intra_dc", "dmc_dc"):
+        _, rt = build(name, seed=BF16_SEEDS[name], dtype=dtype)
+        rt.update()
+        rts.append(rt)
+    return rts
+
+
+def _dc_bf16_chain(irt, prt, taps, frames, pad, capture=None):
+    """I + P_FRAMES through the containers, each frame's decoder DPB the
+    next frame's reference; per-frame rows. Fails on unequal symbols, a
+    gap above BF16_TOL or a value above BF16_DESYNC. ``capture`` collects
+    K1's inputs of the first P compress."""
+    import torch.nn.functional as F
+
+    from dcvc_tpu_torch.ops import block_warp as bw
+    from dcvc_tpu_torch.utils import stream
+
+    hp, wp = HEIGHT + pad[1], WIDTH + pad[0]
+    q_index, rows = 32, []
+    dpb_enc = dpb_dec = None
+    for i, x in enumerate(frames):
+        xp = F.pad(x, (0, pad[0], 0, pad[1]), mode="replicate")
+        k0 = bw.block_warp_nchw.launches
+        t = time.time()
+        if i == 0:
+            comp = irt.compress(xp, False, q_index)
+            data = stream.pack_i(hp, wp, False, q_index, comp["bit_stream"])
+            enc_ms, k1 = _sync_ms(t), bw.block_warp_nchw.launches
+            t = time.time()
+            h, w, qc, qi, s = stream.unpack_i(bytes(data))
+            dec = irt.decompress(s, h, w, qc, qi)
+            dec_ms = _sync_ms(t)
+            enc, dc = {"ref_frame": comp["x_hat"]}, {"ref_frame": dec["x_hat"]}
+            tap = taps["i"]
+        else:
+            launch = bw._launch      # K1's launch, behind the counter
+            if capture is not None and i == 1:
+                def spy(im, fl, *spec):
+                    capture.append((im.clone(), fl.clone(), spec))
+                    return launch(im, fl, *spec)
+                bw._launch = spy
+            try:
+                comp = prt.compress(xp, dpb_enc, False, q_index, i)
+            finally:
+                bw._launch = launch
+            data = stream.pack_p(comp["bit_stream"], False, q_index, i)
+            enc_ms, k1 = _sync_ms(t), bw.block_warp_nchw.launches
+            t = time.time()
+            qc, qi, fi, s = stream.unpack_p(bytes(data))
+            dec = prt.decompress(dpb_dec, s, hp, wp, qc, qi, fi)
+            dec_ms = _sync_ms(t)
+            enc, dc = comp["dpb"], dec["dpb"]
+            tap = taps["p"]
+        k2 = bw.block_warp_nchw.launches
+        idx_diff = tap.index_mismatches()
+        sym_ok = tap.equal()
+        gap, desync = _bf16_gaps((enc[k], dc[k]) for k in enc
+                                 if enc[k] is not None)
+        recon = dc["ref_frame"]
+        row = {"frame": i, "type": "I" if i == 0 else "P",
+               "bytes": len(data), "encode_ms": enc_ms, "decode_ms": dec_ms,
+               "symbols_equal": sym_ok, "index_mismatches": idx_diff,
+               "max_gap": gap, "values_above_desync": desync,
+               "dpb_dtypes": sorted({str(v.dtype) for v in dc.values()
+                                     if v is not None}),
+               "psnr": _psnr(recon, x), "k1_compress": k1 - k0,
+               "k1_decompress": k2 - k1}
+        if not (sym_ok and gap <= BF16_TOL and desync == 0
+                and _finite(recon)):
+            raise AssertionError(f"bf16 DC frame {i}: {row}")
+        rows.append(row)
+        if i == 0:
+            dpb_enc = {"ref_frame": comp["x_hat"], "ref_feature": None,
+                       "ref_mv_feature": None, "ref_y": None,
+                       "ref_mv_y": None}
+            dpb_dec = dict(dpb_enc, ref_frame=dec["x_hat"])
+        else:
+            dpb_enc, dpb_dec = enc, dc
+    return rows
+
+
+def _dc_timing(irt, prt, frames, pad) -> dict:
+    """I and P encode / decode ms (median of 3 after a warm-up), bytes,
+    PSNR and peak memory of one runtime pair: the I-frame of frames[0],
+    then the P-frame of frames[1] on the I-frame's DPB."""
+    import torch
+    import torch.nn.functional as F
+
+    hp, wp = HEIGHT + pad[1], WIDTH + pad[0]
+    x0, x1 = (F.pad(x, (0, pad[0], 0, pad[1]), mode="replicate")
+              for x in frames[:2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    def timed(fn):
+        t = time.time()
+        r = fn()
+        return r, _sync_ms(t)
+
+    runs = [timed(lambda: irt.compress(x0, False, 32)) for _ in range(4)]
+    comp_i = runs[0][0]
+    out["i_encode_ms"] = sorted(r[1] for r in runs[1:])[1]
+    runs = [timed(lambda: irt.decompress(comp_i["bit_stream"], hp, wp, False,
+                                         32)) for _ in range(4)]
+    out["i_decode_ms"] = sorted(r[1] for r in runs[1:])[1]
+    dpb = {"ref_frame": runs[0][0]["x_hat"], "ref_feature": None,
+           "ref_mv_feature": None, "ref_y": None, "ref_mv_y": None}
+    runs = [timed(lambda: prt.compress(x1, dpb, False, 32, 1))
+            for _ in range(4)]
+    comp_p = runs[0][0]
+    out["p_encode_ms"] = sorted(r[1] for r in runs[1:])[1]
+    runs = [timed(lambda: prt.decompress(dpb, comp_p["bit_stream"], hp, wp,
+                                         False, 32, 1)) for _ in range(4)]
+    out["p_decode_ms"] = sorted(r[1] for r in runs[1:])[1]
+    out.update(i_bytes=len(comp_i["bit_stream"]),
+               p_bytes=len(comp_p["bit_stream"]),
+               i_psnr=_psnr(comp_i["x_hat"], frames[0]),
+               p_psnr=_psnr(runs[0][0]["dpb"]["ref_frame"], frames[1]),
+               peak_mem_gib=_gib(torch.cuda.max_memory_allocated()))
+    out["p_profile"] = _p_profile(prt, x1, dpb, hp, wp)
+    return out
+
+
+def _p_profile(prt, x, dpb, hp, wp) -> dict:
+    """One P-frame compress + decompress under torch.profiler: device ms,
+    busy share, top kernels, and the FFT kernels' share (cuDNN's FFT
+    convolution algorithms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        comp = prt.compress(x, dpb, False, 32, 1)
+        prt.decompress(dpb, comp["bit_stream"], hp, wp, False, 32, 1)
+        wall = _sync_ms(t)
+    rows = _device_rows(prof.key_averages())
+    device_ms = sum(r[0] for r in rows)
+    fft = [r for r in rows if "fft" in r[2].lower()]
+    return {"wall_ms": wall, "device_ms": device_ms or None,
+            "busy_share": device_ms / wall if device_ms else None,
+            "fft_ms": sum(r[0] for r in fft),
+            "fft_launches": sum(r[1] for r in fft),
+            "block_warp_ms": sum(r[0] for r in rows if "block_warp" in r[2]
+                                 or "block_prep" in r[2]),
+            "top": [{"ms": ms, "count": n, "name": k[:80]}
+                    for ms, n, k in rows[:8]]}
+
+
+def _evc_bf16(results: dict) -> dict:
+    """evc_SS and evc_LL in bf16: one 1080p image write-stream (a warm-up
+    + 3), symbols equal, recon gap within BF16_TOL, peak memory; one
+    profiled evc_LL encode (its FFT kernels)."""
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from dcvc_tpu_torch.models.evc import build_evc
+    from dcvc_tpu_torch.models.runtime import EvcCodecRuntime
+    from dcvc_tpu_torch.ops.warp import get_padding_size
+    from dcvc_tpu_torch.utils import stream
+
+    _, pr, _, pb = get_padding_size(HEIGHT, WIDTH, 64)
+    x = F.pad(_image(HEIGHT, WIDTH, 5), (0, pr, 0, pb), mode="replicate")
+    q, _ = stream.get_rounded_q(EVC_Q)
+    rows = {}
+    _reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for variant in ("SS", "LL"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            module = build_evc(variant, seed=21, dtype=torch.bfloat16)
+            rt, dec_rt = EvcCodecRuntime(module), EvcCodecRuntime(module)
+            rt.update()
+            dec_rt.update()
+            tap = _SymbolTap(rt, dec_rt)
+            path = os.path.join(tmp, f"evc_{variant}_bf16.bin")
+            # each round trip fails on unequal symbols or a gap above
+            # BF16_TOL (so no value reaches BF16_DESYNC)
+            runs = [_evc_roundtrip(rt, dec_rt, tap, x, HEIGHT, WIDTH, path,
+                                   tol=BF16_TOL) for _ in range(4)]
+            f32 = results.get("evc", {}).get(variant, {})
+            row = {"model": f"evc_{variant}", "dtype": "bfloat16",
+                   "bytes": len(runs[0][0]),
+                   "encode_ms_median3": sorted(r[1] for r in runs[1:])[1],
+                   "decode_ms_median3": sorted(r[2] for r in runs[1:])[1],
+                   "symbols_equal": True, "max_gap": max(r[3] for r in runs),
+                   "psnr": _psnr(runs[0][4]["x_hat"], x[:, :, :HEIGHT,
+                                                        :WIDTH]),
+                   "peak_mem_gib": _gib(torch.cuda.max_memory_allocated()),
+                   **{f"f32_{k}": f32.get(k) for k in (
+                       "peak_mem_gib", "encode_ms_median3",
+                       "decode_ms_median3", "bytes")}}
+            if variant == "LL":
+                row["encode_profile"] = _hem_profile(
+                    lambda: rt.compress(x, q))
+                tap.enc, tap.dec, tap.enc_idx, tap.dec_idx = [], [], [], []
+            print(f"bf16 evc {json.dumps(row)}", flush=True)
+            rows[variant] = row
+            del module, rt, dec_rt, tap
+    rows["launches"] = _no_kernel_launched("evc bf16")
+    return rows
+
+
+def bf16_phase(results: dict):
+    """The dtype option on the card: IntraNoAR + DMC built with
+    ``dtype=torch.bfloat16`` code I + P_FRAMES at 1080p with aligned_enc
+    off, then on (K1 1 + 1 per P-frame off, 2 + 1 on); K1 against its
+    plain version on the OD call's captured bf16 inputs; bf16 against f32
+    on the same weights and frames; evc_SS and evc_LL in bf16."""
+    import torch
+
+    from dcvc_tpu_torch.ops import block_warp as bw
+    from dcvc_tpu_torch.ops.warp import get_padding_size
+
+    _, pr, _, pb = get_padding_size(HEIGHT, WIDTH, 16)
+    frames = _content(1 + P_FRAMES)
+    irt, prt = _dc_runtimes(torch.bfloat16)
+    taps = {"i": _SymbolTap(irt), "p": _SymbolTap(prt)}
+    captured = []
+    _reset_counts()
+    chains = {}
+    for aligned in (False, True):
+        prt.aligned_enc = aligned
+        chains["aligned" if aligned else "default"] = _dc_bf16_chain(
+            irt, prt, taps, frames, (pr, pb),
+            None if aligned else captured)
+    prt.aligned_enc = False
+    counts = _counts()
+    for name, rows in chains.items():
+        want = (2 if name == "aligned" else 1, 1)
+        for row in rows[1:]:
+            if (row["k1_compress"], row["k1_decompress"]) != want:
+                raise AssertionError(f"bf16 {name} P-frame {row['frame']}: "
+                                     f"K1 {row['k1_compress']} + "
+                                     f"{row['k1_decompress']}, want {want}")
+        for row in rows:
+            print(f"bf16 dc {name} {json.dumps(row)}", flush=True)
+    if counts["band_copy"] or counts["block_warp"] != P_FRAMES * 5:
+        raise AssertionError(f"bf16 runtimes: launches {counts}")
+
+    im, fl, spec = captured[0]
+    ker = bw.block_warp_nchw(im, fl, *spec)
+    torch.cuda.synchronize()
+    plain = bw.block_warp_plain_nchw(im, fl, *spec)
+    k1 = {"shape": list(im.shape), "dtype": str(im.dtype),
+          "flow_dtype": str(fl.dtype),
+          "max_abs_err": (ker.float() - plain.float()).abs().max().item(),
+          "ms": _time_ms(lambda: bw.block_warp_nchw(im, fl, *spec), 20, 3),
+          "plain_ms": _time_ms(lambda: bw.block_warp_plain_nchw(
+              im, fl, *spec), 3)}
+    # the wrapper casts OD's bf16 offsets to f32 first: that cast, and
+    # the call on a flow already in f32
+    fl32 = fl.float()
+    k1["ms_flow_cast"] = _time_ms(lambda: fl.float(), 20, 3)
+    k1["ms_f32_flow"] = _time_ms(lambda: bw.block_warp_nchw(
+        im, fl32, *spec), 20, 3)
+    if not (im.dtype == torch.bfloat16 and k1["max_abs_err"] == 0.0
+            and _finite(ker)):
+        raise AssertionError(f"bf16 OD K1: {k1}")
+    # the exact mc warp at context1's shape: bf16 takes the gather route
+    # (positions in f32), f32 F.grid_sample
+    from dcvc_tpu_torch.ops.warp import flow_warp
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    feat, mv = _od_inputs(1, 48, HEIGHT + pb, WIDTH + pr, torch.float32,
+                          (0.0, 0.0), gen)
+    k1["exact_warp_48ch"] = {
+        "shape": list(feat.shape),
+        "bf16_gather_ms": _time_ms(lambda: flow_warp(
+            feat.bfloat16(), mv.bfloat16()), 10, 2),
+        "f32_grid_sample_ms": _time_ms(lambda: flow_warp(feat, mv), 10, 2)}
+    del feat, mv
+    print(f"bf16 k1_in_p_frame {json.dumps(k1)}", flush=True)
+    del captured, ker, plain, im, fl, fl32
+
+    timing = {"bfloat16": _dc_timing(irt, prt, frames, (pr, pb))}
+    del irt, prt, taps
+    torch.cuda.empty_cache()
+    irt, prt = _dc_runtimes(None)
+    timing["float32"] = _dc_timing(irt, prt, frames, (pr, pb))
+    del irt, prt
+    torch.cuda.empty_cache()
+    for dt, row in timing.items():
+        print(f"bf16 vs f32 dc {dt} {json.dumps(row)} ({_card()})",
+              flush=True)
+    results["bf16"] = {"dc": chains, "launches": counts, "k1": k1,
+                       "timing": timing, "evc": _evc_bf16(results)}
+
+
 def main() -> int:
     import torch
 
@@ -3165,7 +3508,7 @@ def main() -> int:
               zoo_tcm_cli_phase, train_card_cpu_phase, train_fit_phase,
               train_remat_phase, train_intra_phase, train_ckpt_phase,
               train_cli_phase, serving_phase, serve_cli_phase, pool_phase,
-              tools_phase]
+              tools_phase, bf16_phase]
     for i, phase in enumerate(phases):
         t = time.time()
         phase(results)
@@ -3195,7 +3538,8 @@ def main() -> int:
                                 for r in results["zoo"].values()),
             "tcm_runtimes": results["tcm"]["launches"][kernel],
             "gen1_runtimes": results["gen1"]["launches"][kernel],
-            "zoo_tcm_cli": results["zoo_tcm_cli"]["launches"][kernel]}
+            "zoo_tcm_cli": results["zoo_tcm_cli"]["launches"][kernel],
+            "evc_runtimes_bf16": results["bf16"]["evc"]["launches"][kernel]}
     def training_launches(kernel):
         """Launches on the training paths (0 on all but the trained
         checkpoint's coding, checked in their phases)."""
@@ -3220,6 +3564,7 @@ def main() -> int:
         "launches": cli_k1,
         "launches_by_path": {
             "runtimes": results["launches"]["runtimes"]["block_warp"],
+            "runtimes_bf16": results["bf16"]["launches"]["block_warp"],
             "cli": cli_k1, "diag_dma": 0, **no_kernel_paths("block_warp"),
             "hem_block_mc": results["hem_block"]["launches"]["block_warp"],
             "tcm_block_mc": results["tcm_block"]["launches"]["block_warp"],
@@ -3240,6 +3585,7 @@ def main() -> int:
         "ms_prep_bf16": k1["od_1080p_bf16"]["ms_prep"],
         "ms_warp_bf16": k1["od_1080p_bf16"]["ms_warp"],
         "share_of_bound_bf16": k1["od_1080p_bf16"]["share_of_bound"],
+        "bf16_p_frame_od": results["bf16"]["k1"],
         "hem_mc_64ch": {k: hem_k1[k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound")},
@@ -3259,6 +3605,8 @@ def main() -> int:
         "tpu_kernel": "tools/diag_dma.py:make_bench.kernel",
         "launches": results["diag_dma"]["launches"],
         "launches_by_path": {"runtimes": 0, "cli": 0,
+                             "runtimes_bf16": results["bf16"]["launches"]
+                             ["band_copy"],
                              "diag_dma": results["diag_dma"]["launches"],
                              **no_kernel_paths("band_copy"),
                              "hem_block_mc": results["hem_block"]["launches"]

@@ -10,6 +10,8 @@ are the reference EVC checkpoint's (``port_dc._evc_encoder`` /
 ``hyper_dec``, ``y_prior_fusion``, ``y_spatial_prior``,
 ``bit_estimator_z``, ``q_basic`` (1, N, 1, 1) and ``q_scale`` (4, 1, 1, 1),
 so a published EVC ``.pth`` loads with ``load_state_dict(strict=True)``.
+``dtype`` (None = f32, or ``torch.bfloat16``) is the compute dtype of
+``layers/blocks.py``; parameters stay f32.
 """
 
 from __future__ import annotations
@@ -24,9 +26,11 @@ from ..entropy import bits
 from ..entropy.bit_estimator import BitEstimator
 from ..layers.blocks import (
     DepthConvBlock,
+    LeakyReLU,
     ResidualBlockUpsample,
     ResidualBlockWithStride,
     conv,
+    set_compute_dtype,
     subpel_conv,
 )
 from ..layers.evc_blocks import DepthConvBlockUpsample, EvcDepthConvBlock
@@ -65,7 +69,7 @@ class EvcHyperEnc(nn.Sequential):
     # (EVC/src/models/hyperprior.py:7-74), not the enc/dec EVC variant
     def __init__(self, N: int):
         super().__init__(DepthConvBlock(N, N), conv(N, N, 3, 2),
-                         nn.LeakyReLU(0.01), conv(N, N, 3, 2))
+                         LeakyReLU(0.01), conv(N, N, 3, 2))
 
 
 class EvcHyperDec(nn.Sequential):
@@ -197,24 +201,25 @@ class EVCIntra(_EvcCodec):
 
     def __init__(self, enc_channels: Sequence[int] = EVC_CHANNEL_GRID["L"],
                  dec_channels: Sequence[int] = EVC_CHANNEL_GRID["L"],
-                 N: int = 192, anchor_num: int = 4):
+                 N: int = 192, anchor_num: int = 4, dtype=None):
         super().__init__(dec_channels, N, anchor_num)
         self.enc = EvcEncoder(enc_channels)
+        set_compute_dtype(self, dtype)
 
 
-def make_evc(variant: str = "LL", N: int = 192) -> EVCIntra:
+def make_evc(variant: str = "LL", N: int = 192, dtype=None) -> EVCIntra:
     """variant "XY": encoder size X, decoder size Y, X/Y in {L, M, S}."""
     return EVCIntra(EVC_CHANNEL_GRID[variant[0]], EVC_CHANNEL_GRID[variant[1]],
-                    N)
+                    N, dtype=dtype)
 
 
 def build_evc(variant: str = "LL", N: int = 192, seed: int = 0,
-              device=None) -> EVCIntra:
+              device=None, dtype=None) -> EVCIntra:
     """EVCIntra with seeded random weights (``q_basic`` / ``q_scale`` at
-    ones, as the JAX init), on ``device`` (the card unless
-    ``device="cpu"``), in eval mode."""
+    ones, as the JAX init; the same for any ``dtype``), on ``device`` (the
+    card unless ``device="cpu"``), in eval mode."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        module = make_evc(variant, N)
+        module = make_evc(variant, N, dtype)
     return module.to(dev).eval()

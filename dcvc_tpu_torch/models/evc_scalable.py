@@ -5,7 +5,8 @@ Counterpart of ``dcvc_tpu/models/evc_scalable.py`` (parity target:
 EVC/src/models/scalable_encoder_model.py:15-285): the scalable_add running
 mean of the bank's latents (detached prefix), the per-rate lambda table and
 the argmin-cost encoder id chosen at encode time. The encoders are
-``encs.{i}`` with the keys of EVCIntra's ``enc``; the rest is EVCIntra's.
+``encs.{i}`` with the keys of EVCIntra's ``enc``; the rest is EVCIntra's,
+``dtype`` included.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..device import resolve_device
+from ..layers.blocks import set_compute_dtype
 from . import priors
 from .evc import EVC_CHANNEL_GRID, EvcEncoder, _EvcCodec
 
@@ -39,11 +41,12 @@ class ScalableEVC(_EvcCodec):
     def __init__(self, enc_num: int = 4,
                  enc_channels=EVC_CHANNEL_GRID["S"],
                  dec_channels=EVC_CHANNEL_GRID["L"], N: int = 192,
-                 anchor_num: int = 4):
+                 anchor_num: int = 4, dtype=None):
         super().__init__(dec_channels, N, anchor_num)
         self.enc_num = enc_num
         self.encs = nn.ModuleList(EvcEncoder(enc_channels)
                                   for _ in range(enc_num))
+        set_compute_dtype(self, dtype)
 
     def multi_encode(self, x, q_scale, forward_enc_id: int | None = None):
         curr_q = self.get_curr_q(q_scale)
@@ -94,8 +97,9 @@ def choose_encoder_id(mse, bpp, rate_idx: int) -> int:
 
 def build_evc_scalable(enc_num: int = 4, N: int = 192, seed: int = 0,
                        device=None, **kwargs) -> ScalableEVC:
-    """ScalableEVC with seeded random weights on ``device`` (the card
-    unless ``device="cpu"``), in eval mode."""
+    """ScalableEVC with seeded random weights (the same for any
+    ``dtype``) on ``device`` (the card unless ``device="cpu"``), in eval
+    mode; ``kwargs`` (``dtype`` among them) go to ``ScalableEVC``."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)

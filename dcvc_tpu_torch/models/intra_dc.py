@@ -4,7 +4,8 @@ Counterpart of ``dcvc_tpu/models/intra_dc.py`` (parity target:
 DCVC-DC/src/models/image_model.py:16-252): four-part quad-tree prior, UNet2
 refinement, enc/dec-side vector quant steps with 64-point log-interpolated
 fine q tables. Child names follow the reference, so its ``state_dict``
-loads with ``strict=True``.
+loads with ``strict=True``. ``dtype`` (None = f32, or ``torch.bfloat16``)
+is the compute dtype of ``layers/blocks.py``; parameters stay f32.
 """
 
 from __future__ import annotations
@@ -18,10 +19,12 @@ from ..entropy import bits
 from ..entropy.bit_estimator import BitEstimator
 from ..layers.blocks import (
     DepthConvBlock2,
+    LeakyReLU,
     ResidualBlockUpsample,
     ResidualBlockWithStride,
     UNet,
     conv,
+    set_compute_dtype,
 )
 from ..ops.warp import crop_lrtb, get_padding_size, replicate_pad
 from . import priors
@@ -34,7 +37,8 @@ def pad_for_y(y):
 
 
 class IntraEncoder(nn.Module):
-    def __init__(self, N: int, ch_a: int = 128, ch_b: int = 192):
+    def __init__(self, N: int, ch_a: int = 128, ch_b: int = 192,
+                 dtype=None):
         super().__init__()
         self.enc_1 = nn.Sequential(ResidualBlockWithStride(3, ch_a, 2),
                                    DepthConvBlock2(ch_a, ch_a))
@@ -42,13 +46,15 @@ class IntraEncoder(nn.Module):
             ResidualBlockWithStride(ch_a, ch_b, 2), DepthConvBlock2(ch_b, ch_b),
             ResidualBlockWithStride(ch_b, N, 2), DepthConvBlock2(N, N),
             conv(N, N, 3, 2))
+        set_compute_dtype(self, dtype)
 
     def forward(self, x, quant_step):
         return self.enc_2(self.enc_1(x) * quant_step)
 
 
 class IntraDecoder(nn.Module):
-    def __init__(self, N: int, ch_a: int = 128, ch_b: int = 192):
+    def __init__(self, N: int, ch_a: int = 128, ch_b: int = 192,
+                 dtype=None):
         super().__init__()
         self.dec_1 = nn.Sequential(
             DepthConvBlock2(N, N), ResidualBlockUpsample(N, N, 2),
@@ -56,6 +62,7 @@ class IntraDecoder(nn.Module):
             DepthConvBlock2(ch_b, ch_b), ResidualBlockUpsample(ch_b, ch_a, 2))
         self.dec_2 = nn.Sequential(DepthConvBlock2(ch_a, ch_a),
                                    ResidualBlockUpsample(ch_a, 16, 2))
+        set_compute_dtype(self, dtype)
 
     def forward(self, x, quant_step):
         return self.dec_2(self.dec_1(x) * quant_step)
@@ -63,12 +70,12 @@ class IntraDecoder(nn.Module):
 
 class IntraNoAR(nn.Module):
     def __init__(self, N: int = 256, anchor_num: int = 4, ch_a: int = 128,
-                 ch_b: int = 192):
+                 ch_b: int = 192, dtype=None):
         super().__init__()
         self.N = N
         self.enc = IntraEncoder(N, ch_a, ch_b)
         self.hyper_enc = nn.Sequential(
-            DepthConvBlock2(N, N), conv(N, N, 3, 2), nn.LeakyReLU(),
+            DepthConvBlock2(N, N), conv(N, N, 3, 2), LeakyReLU(),
             conv(N, N, 3, 2))
         self.hyper_dec = nn.Sequential(
             ResidualBlockUpsample(N, N, 2), ResidualBlockUpsample(N, N, 2),
@@ -88,6 +95,7 @@ class IntraNoAR(nn.Module):
         self.q_scale_enc = nn.Parameter(torch.ones(anchor_num, 1, 1, 1))
         self.q_basic_dec = nn.Parameter(torch.ones(1, ch_a, 1, 1))
         self.q_scale_dec = nn.Parameter(torch.ones(anchor_num, 1, 1, 1))
+        set_compute_dtype(self, dtype)
 
     # -- prior plumbing --
 
@@ -180,11 +188,11 @@ def build_fine_q_tables(q_scale: np.ndarray, num: int = 64) -> np.ndarray:
 
 
 def build_intra_dc(N: int = 256, ch_a: int = 128, ch_b: int = 192,
-                   seed: int = 0, device=None) -> IntraNoAR:
-    """IntraNoAR with seeded random weights, on ``device`` (the card unless
-    ``device="cpu"``), in eval mode."""
+                   seed: int = 0, device=None, dtype=None) -> IntraNoAR:
+    """IntraNoAR with seeded random weights (the same for any ``dtype``),
+    on ``device`` (the card unless ``device="cpu"``), in eval mode."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        module = IntraNoAR(N, 4, ch_a, ch_b)
+        module = IntraNoAR(N, 4, ch_a, ch_b, dtype)
     return module.to(dev).eval()

@@ -10,6 +10,8 @@ codes on ``EvcCodecRuntime`` and ``dmc_hem`` / ``canfvc_dmc`` on
 ``HemVideoRuntime``; the five CompressAI zoo names (the I-frame codecs of
 TCM and gen-1) on ``IntraZooRuntime``, ``dmc_tcm`` on ``TcmVideoRuntime``
 and ``dcvc_gen1`` on ``DcvcGen1Runtime``, as in the JAX registry.
+``dtype=torch.bfloat16`` (the JAX modules' compute dtype) builds the names
+in ``DTYPE_MODELS``; every other name raises for a ``dtype``, f32 only.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ MODEL_NAMES = [
     "cheng2020-anchor",
     "dmc_dc", "dmc_hem", "dmc_tcm", "dcvc_gen1", "canfvc_dmc",
 ]
+# the names whose modules take the dtype option
+DTYPE_MODELS = (*EVC_MODELS, "evc_scalable", "intra_dc", "dmc_dc")
 
 
 def build(name: str, seed: int = 0, device=None, state_dict=None, **kwargs):
@@ -48,6 +52,9 @@ def build(name: str, seed: int = 0, device=None, state_dict=None, **kwargs):
 
     if name not in MODEL_NAMES:
         raise KeyError(f"unknown model {name}")
+    if kwargs.get("dtype") is not None and name not in DTYPE_MODELS:
+        raise NotImplementedError(
+            f"{name}: the dtype option is not yet ported (f32 only)")
     dev = resolve_device(device)
     if name in EVC_MODELS:
         module = build_evc(name.split("_")[1], seed=seed, device=dev, **kwargs)

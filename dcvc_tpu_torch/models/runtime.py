@@ -51,6 +51,10 @@ from .video_dcvc import extract_ar_nets
 
 
 def _to_host_nhwc(t: torch.Tensor) -> np.ndarray:
+    """NHWC host copy; bf16 comes over as f32 (numpy has no bf16), as the
+    JAX runtimes read their bf16 planes back."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
     return t.permute(0, 2, 3, 1).contiguous().cpu().numpy()
 
 
@@ -137,14 +141,15 @@ class _RuntimeBase:
                           sym_source=None):
         """Serial four-part decode: scales -> rANS -> update, steps 0..3.
         ``sym_source(scales_r)`` supplies each step's symbol plane: host
-        rANS by default; the aligned encode feeds known symbols."""
+        rANS by default; the aligned encode feeds known symbols. The f32
+        plane takes the prior's dtype, as in the JAX package."""
         sym_source = sym_source or self._host_decode
         B, _, yh, yw = params.shape
         so_far = torch.zeros(B, channels, yh, yw, dtype=params.dtype,
                              device=params.device)
         for step in range(4):
             scales_r, means_parts = scales_step(params, so_far, step)
-            y_q_r = sym_source(scales_r)
+            y_q_r = sym_source(scales_r).to(params.dtype)
             so_far = priors.four_part_decode_update(
                 params, so_far, y_q_r, means_parts, step)
         return so_far

@@ -9,7 +9,10 @@ with 64-point fine q tables. Child names follow the reference.
 
 DPB contract (video_model.py:616-622): a dict {ref_frame, ref_feature,
 ref_mv_feature, ref_y, ref_mv_y} of NCHW tensors (entries may be None on
-the first P-frame after an I-frame).
+the first P-frame after an I-frame). ``dtype`` (None = f32, or
+``torch.bfloat16``) is the compute dtype of ``layers/blocks.py``;
+parameters stay f32 and the DPB's dtypes are a fixed point of the P-frame
+step, as in the JAX package (``tests/test_dtype_consistency.py``).
 """
 
 from __future__ import annotations
@@ -22,11 +25,13 @@ from ..entropy import bits
 from ..entropy.bit_estimator import BitEstimator
 from ..layers.blocks import (
     DepthConvBlock,
+    LeakyReLU,
     ResBlock,
     ResidualBlockUpsample,
     ResidualBlockWithStride,
     UNet,
     conv,
+    set_compute_dtype,
     subpel_conv,
 )
 from ..ops.warp import bilinear_down2, crop_lrtb, get_padding_size, resolve_warp_fn
@@ -50,7 +55,8 @@ Q_SCALE_NAMES = ("mv_y_q_scale_enc", "mv_y_q_scale_dec",
 
 
 class MvEnc(nn.Module):
-    def __init__(self, input_channel: int = 2, channel: int = 64):
+    def __init__(self, input_channel: int = 2, channel: int = 64,
+                 dtype=None):
         super().__init__()
         ch = channel
         self.enc_1 = nn.Sequential(ResidualBlockWithStride(input_channel, ch, 2),
@@ -60,6 +66,7 @@ class MvEnc(nn.Module):
         self.adaptor_1 = DepthConvBlock(ch * 2, ch)
         self.enc_3 = nn.Sequential(ResidualBlockWithStride(ch, ch, 2),
                                    DepthConvBlock(ch, ch), conv(ch, ch, 3, 2))
+        set_compute_dtype(self, dtype)
 
     def forward(self, x, context, quant_step):
         out = self.enc_2(self.enc_1(x) * quant_step)
@@ -71,7 +78,8 @@ class MvEnc(nn.Module):
 
 
 class MvDec(nn.Module):
-    def __init__(self, output_channel: int = 2, channel: int = 64):
+    def __init__(self, output_channel: int = 2, channel: int = 64,
+                 dtype=None):
         super().__init__()
         ch = channel
         self.dec_1 = nn.Sequential(
@@ -81,6 +89,7 @@ class MvDec(nn.Module):
         self.dec_2 = ResidualBlockUpsample(ch, ch, 2)
         self.dec_3 = nn.Sequential(DepthConvBlock(ch, ch),
                                    subpel_conv(ch, output_channel, 2))
+        set_compute_dtype(self, dtype)
 
     def forward(self, x, quant_step):
         feature = self.dec_1(x)
@@ -89,7 +98,7 @@ class MvDec(nn.Module):
 
 
 class ContextualEncoder(nn.Module):
-    def __init__(self):
+    def __init__(self, dtype=None):
         super().__init__()
         c1, c2, c4, c8, c16 = (G_CH[k] for k in ("1x", "2x", "4x", "8x", "16x"))
         self.conv1 = conv(c1 + 3, c2, 3, 2)
@@ -100,6 +109,7 @@ class ContextualEncoder(nn.Module):
                              bottleneck=True)
         self.conv3 = conv(c4 * 2, c8, 3, 2)
         self.conv4 = conv(c8, c16, 3, 2)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x, context1, context2, context3, quant_step):
         f = self.conv1(torch.cat([x, context1], dim=1))
@@ -109,7 +119,7 @@ class ContextualEncoder(nn.Module):
 
 
 class ContextualDecoder(nn.Module):
-    def __init__(self):
+    def __init__(self, dtype=None):
         super().__init__()
         c2, c4, c8, c16 = (G_CH[k] for k in ("2x", "4x", "8x", "16x"))
         self.up1 = subpel_conv(c16, c8, 2, 3)
@@ -120,6 +130,7 @@ class ContextualDecoder(nn.Module):
         self.res2 = ResBlock(c2 * 2, slope=0.1, end_with_relu=True,
                              bottleneck=True)
         self.up4 = subpel_conv(c2 * 2, 32, 2, 3)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x, context2, context3, quant_step):
         f = self.up2(self.up1(x))
@@ -130,13 +141,15 @@ class ContextualDecoder(nn.Module):
 
 
 class ReconGeneration(nn.Module):
-    def __init__(self, ctx_channel: int = 32, res_channel: int = G_CH["1x"]):
+    def __init__(self, ctx_channel: int = 32, res_channel: int = G_CH["1x"],
+                 dtype=None):
         super().__init__()
         c1 = G_CH["1x"]
         self.first_conv = conv(ctx_channel + res_channel, c1, 3)
         self.unet_1 = UNet(c1, c1)
         self.unet_2 = UNet(c1, c1)
         self.recon_conv = conv(c1, 3, 3)
+        set_compute_dtype(self, dtype)
 
     def forward(self, ctx, res):
         feature = self.unet_2(self.unet_1(self.first_conv(
@@ -151,7 +164,8 @@ class DMC(nn.Module):
 
     def __init__(self, anchor_num: int = 4, od_warp_mode: str | None = None,
                  mc_warp_mode: str | None = None,
-                 me_warp_mode: str | None = None, warp_chunks: int = 1):
+                 me_warp_mode: str | None = None, warp_chunks: int = 1,
+                 dtype=None):
         super().__init__()
         c1, c16 = G_CH["1x"], G_CH["16x"]
         ch_mv = CH_MV
@@ -186,7 +200,7 @@ class DMC(nn.Module):
         self.contextual_hyper_prior_encoder = HyperEncReduced(c16, c16)
         self.contextual_hyper_prior_decoder = HyperDec(c16, c16)
         self.temporal_prior_encoder = nn.Sequential(
-            conv(G_CH["4x"], G_CH["8x"], 3, 2), nn.LeakyReLU(0.1),
+            conv(G_CH["4x"], G_CH["8x"], 3, 2), LeakyReLU(0.1),
             conv(G_CH["8x"], c16, 3, 2))
         self.y_prior_fusion_adaptor_0 = DepthConvBlock(c16 * 2, c16 * 3)
         self.y_prior_fusion_adaptor_1 = DepthConvBlock(c16 * 3, c16 * 3)
@@ -212,6 +226,7 @@ class DMC(nn.Module):
         self.y_q_scale_enc = nn.Parameter(torch.ones(anchor_num, 1, 1, 1))
         self.y_q_basic_dec = nn.Parameter(torch.ones(1, G_CH["2x"], 1, 1))
         self.y_q_scale_dec = nn.Parameter(torch.ones(anchor_num, 1, 1, 1))
+        set_compute_dtype(self, dtype)
 
     # ---- prior plumbing ----
 
@@ -426,8 +441,9 @@ def get_dmc_q_tables(module: DMC) -> dict:
 
 
 def build_dmc(seed: int = 0, device=None, **kwargs) -> DMC:
-    """DMC with seeded random weights, on ``device`` (the card unless
-    ``device="cpu"``), in eval mode; ``kwargs`` go to ``DMC``."""
+    """DMC with seeded random weights (the same for any ``dtype``), on
+    ``device`` (the card unless ``device="cpu"``), in eval mode;
+    ``kwargs`` (``dtype`` among them) go to ``DMC``."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)

@@ -5,6 +5,7 @@ Counterpart of ``dcvc_tpu/models/video_net.py``. Parity targets:
   * OffsetDiversity (video_model.py:26-63),
   * FeatureExtractor / MultiScaleContextFusion (video_model.py:66-118),
   * hyper enc/dec factories (video_net.py:217-251).
+``dtype`` is the compute dtype of ``layers/blocks.py``.
 """
 
 from __future__ import annotations
@@ -12,18 +13,20 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ..layers.blocks import ResBlock, avg_pool2, conv, subpel_conv
+from ..layers.blocks import (Conv2d, LeakyReLU, ResBlock, avg_pool2, conv,
+                             set_compute_dtype, subpel_conv)
 from ..ops.warp import bilinear_up2, default_od_warp_mode, resolve_warp_fn
 
 
 class MEBasic(nn.Module):
-    def __init__(self):
+    def __init__(self, dtype=None):
         super().__init__()
         self.conv1 = conv(8, 32, 7)
         self.conv2 = conv(32, 64, 7)
         self.conv3 = conv(64, 32, 7)
         self.conv4 = conv(32, 16, 7)
         self.conv5 = conv(16, 2, 7)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         x = torch.relu(self.conv1(x))
@@ -36,11 +39,13 @@ class MEBasic(nn.Module):
 class MESpynet(nn.Module):
     """4-level coarse-to-fine optical flow (im1 = current, im2 = reference)."""
 
-    def __init__(self, me_warp_mode: str | None = None, levels: int = 4):
+    def __init__(self, me_warp_mode: str | None = None, levels: int = 4,
+                 dtype=None):
         super().__init__()
         self.levels = levels
         self.me_warp_mode = me_warp_mode
-        self.moduleBasic = nn.ModuleList([MEBasic() for _ in range(levels)])
+        self.moduleBasic = nn.ModuleList([MEBasic(dtype)
+                                          for _ in range(levels)])
 
     def forward(self, im1, im2):
         warp = resolve_warp_fn(self.me_warp_mode or "exact")
@@ -66,12 +71,17 @@ class OffsetDiversity(nn.Module):
     All ``B*G*O`` warp maps go through ONE warp call; map ``k = o*G + g``
     warps feature group ``g``. ``warp_mode`` None picks the device default
     (the block kernel on the card, exact on the CPU). The fusion is the
-    reference's ``groups=G`` 1x1 conv."""
+    reference's ``groups=G`` 1x1 conv; with a compute dtype it convolves in
+    that dtype and adds the f32 bias, so its output is f32, as the JAX
+    package's bf16 ``jnp.dot(warped, dense) + b`` (video_net.py:159-162)."""
+
+    compute_dtype = None
 
     def __init__(self, in_channel: int = 48, aux_feature_num: int = 48 + 3 + 2,
                  offset_num: int = 2, group_num: int = 16,
                  max_residue_magnitude: float = 40.0,
-                 warp_mode: str | None = None, warp_chunks: int = 1):
+                 warp_mode: str | None = None, warp_chunks: int = 1,
+                 dtype=None):
         super().__init__()
         self.in_channel = in_channel
         self.offset_num = offset_num
@@ -80,11 +90,12 @@ class OffsetDiversity(nn.Module):
         self.warp_mode = warp_mode
         self.warp_chunks = warp_chunks
         self.conv_offset = nn.Sequential(
-            nn.Conv2d(aux_feature_num, 64, 3, 2, 1), nn.LeakyReLU(0.1),
-            nn.Conv2d(64, 64, 3, 1, 1), nn.LeakyReLU(0.1),
-            nn.Conv2d(64, 3 * group_num * offset_num, 3, 1, 1))
+            Conv2d(aux_feature_num, 64, 3, 2, 1), LeakyReLU(0.1),
+            Conv2d(64, 64, 3, 1, 1), LeakyReLU(0.1),
+            Conv2d(64, 3 * group_num * offset_num, 3, 1, 1))
         self.fusion = nn.Conv2d(in_channel * offset_num, in_channel, 1, 1,
                                 groups=group_num)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x, aux_feature, flow):
         B, C, H, W = x.shape
@@ -106,11 +117,16 @@ class OffsetDiversity(nn.Module):
         else:
             warped = warp(xg, off)
         warped = (warped * m).reshape(B, G * O * (C // G), H, W)
-        return self.fusion(warped)
+        dt = self.compute_dtype
+        if dt is None:
+            return self.fusion(warped)
+        f = self.fusion
+        return (f._conv_forward(warped.to(dt), f.weight.to(dt), None)
+                + f.bias.view(-1, 1, 1))
 
 
 class FeatureExtractor(nn.Module):
-    def __init__(self, ch=(48, 64, 96)):
+    def __init__(self, ch=(48, 64, 96), dtype=None):
         super().__init__()
         c1, c2, c3 = ch
         self.conv1 = conv(c1, c1, 3)
@@ -119,6 +135,7 @@ class FeatureExtractor(nn.Module):
         self.res_block2 = ResBlock(c2)
         self.conv3 = conv(c2, c3, 3, 2)
         self.res_block3 = ResBlock(c3)
+        set_compute_dtype(self, dtype)
 
     def forward(self, feature):
         layer1 = self.res_block1(self.conv1(feature))
@@ -128,7 +145,7 @@ class FeatureExtractor(nn.Module):
 
 
 class MultiScaleContextFusion(nn.Module):
-    def __init__(self, ch=(48, 64, 96)):
+    def __init__(self, ch=(48, 64, 96), dtype=None):
         super().__init__()
         c1, c2, c3 = ch
         self.conv3_up = subpel_conv(c3, c2, 2, 3)
@@ -141,6 +158,7 @@ class MultiScaleContextFusion(nn.Module):
         self.res_block2_out = ResBlock(c2)
         self.conv1_out = conv(c1 * 2, c1, 3)
         self.res_block1_out = ResBlock(c1)
+        set_compute_dtype(self, dtype)
 
     def forward(self, context1, context2, context3):
         c3_up = self.res_block3_up(self.conv3_up(context3))
@@ -153,23 +171,24 @@ class MultiScaleContextFusion(nn.Module):
         return context1 + c1_out, context2 + c2_out, context3 + c3_out
 
 
-def HyperEnc(y_ch: int, z_ch: int) -> nn.Sequential:
+def HyperEnc(y_ch: int, z_ch: int, dtype=None) -> nn.Sequential:
     """Full-depth hyper encoder (video_net.py:227-237)."""
-    return nn.Sequential(
-        conv(y_ch, z_ch, 3), nn.LeakyReLU(), conv(z_ch, z_ch, 3),
-        nn.LeakyReLU(), conv(z_ch, z_ch, 3, 2), nn.LeakyReLU(),
-        conv(z_ch, z_ch, 3), nn.LeakyReLU(), conv(z_ch, z_ch, 3, 2))
+    return set_compute_dtype(nn.Sequential(
+        conv(y_ch, z_ch, 3), LeakyReLU(), conv(z_ch, z_ch, 3),
+        LeakyReLU(), conv(z_ch, z_ch, 3, 2), LeakyReLU(),
+        conv(z_ch, z_ch, 3), LeakyReLU(), conv(z_ch, z_ch, 3, 2)), dtype)
 
 
-def HyperEncReduced(y_ch: int, z_ch: int) -> nn.Sequential:
+def HyperEncReduced(y_ch: int, z_ch: int, dtype=None) -> nn.Sequential:
     """reduce_enc_layer variant (video_net.py:218-226)."""
-    return nn.Sequential(
-        conv(y_ch, z_ch, 3), nn.LeakyReLU(), conv(z_ch, z_ch, 3, 2),
-        nn.LeakyReLU(), conv(z_ch, z_ch, 3, 2))
+    return set_compute_dtype(nn.Sequential(
+        conv(y_ch, z_ch, 3), LeakyReLU(), conv(z_ch, z_ch, 3, 2),
+        LeakyReLU(), conv(z_ch, z_ch, 3, 2)), dtype)
 
 
-def HyperDec(z_ch: int, y_ch: int) -> nn.Sequential:
-    return nn.Sequential(
-        conv(z_ch, y_ch, 3), nn.LeakyReLU(), subpel_conv(y_ch, y_ch, 2),
-        nn.LeakyReLU(), conv(y_ch, y_ch, 3), nn.LeakyReLU(),
-        subpel_conv(y_ch, y_ch, 2), nn.LeakyReLU(), conv(y_ch, y_ch, 3))
+def HyperDec(z_ch: int, y_ch: int, dtype=None) -> nn.Sequential:
+    return set_compute_dtype(nn.Sequential(
+        conv(z_ch, y_ch, 3), LeakyReLU(), subpel_conv(y_ch, y_ch, 2),
+        LeakyReLU(), conv(y_ch, y_ch, 3), LeakyReLU(),
+        subpel_conv(y_ch, y_ch, 2), LeakyReLU(), conv(y_ch, y_ch, 3)),
+        dtype)

@@ -12,6 +12,11 @@ Counterpart of ``dcvc_tpu/ops/warp.py``. Parity targets:
 ``grid_sample`` normalises coordinates to [-1, 1] and back, which costs
 about ``W * 2**-24`` px of position error (about 1e-4 px at 1920 wide); the
 encoder and the decoder both warp through it, so coding stays in step.
+That is the f32 route. A bf16 image or flow (the models' ``dtype`` option)
+takes ``_gather_warp``: source positions in f32 whatever the flow's dtype
+(the JAX package's exact warp computes them in the flow's dtype, which at
+bf16 samples whole pixels away: ROADMAP R3), bilinear weights and
+arithmetic in the image's dtype, as its ``_flow_warp_naive`` does.
 """
 
 from __future__ import annotations
@@ -27,8 +32,39 @@ from .block_warp import _median_midpoint
 RD_GATED_BLOCK_MODE = "block:4,4,64,128,median4"
 
 
+def _gather_warp(im: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """``dcvc_tpu/ops/warp.py:_flow_warp_naive`` with positions in f32:
+    ``flow`` f32; clamped taps (border padding), weights in ``im.dtype``,
+    output in ``im.dtype``."""
+    B, C, H, W = im.shape
+    dev = im.device
+    xs = torch.arange(W, dtype=torch.float32, device=dev).view(1, 1, W) \
+        + flow[:, 0]
+    ys = torch.arange(H, dtype=torch.float32, device=dev).view(1, H, 1) \
+        + flow[:, 1]
+    x0, y0 = torch.floor(xs), torch.floor(ys)
+    wx = (xs - x0).to(im.dtype)[:, None]
+    wy = (ys - y0).to(im.dtype)[:, None]
+    x0, y0 = x0.long(), y0.long()
+    x0c, x1c = x0.clamp(0, W - 1), (x0 + 1).clamp(0, W - 1)
+    y0c, y1c = y0.clamp(0, H - 1), (y0 + 1).clamp(0, H - 1)
+    flat = im.reshape(B, C, H * W)
+
+    def gather(yy, xx):
+        idx = (yy * W + xx).reshape(B, 1, H * W).expand(B, C, H * W)
+        return torch.gather(flat, 2, idx).reshape(B, C, H, W)
+
+    top = gather(y0c, x0c) * (1 - wx) + gather(y0c, x1c) * wx
+    bot = gather(y1c, x0c) * (1 - wx) + gather(y1c, x1c) * wx
+    return top * (1 - wy) + bot * wy
+
+
 def flow_warp(im: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Backward-warp ``im`` [B,C,H,W] by ``flow`` [B,2,H,W] (fx, fy) px."""
+    """Backward-warp ``im`` [B,C,H,W] by ``flow`` [B,2,H,W] (fx, fy) px.
+    ``F.grid_sample``, or ``_gather_warp`` on the flow cast to f32 when
+    either operand is bf16."""
+    if torch.bfloat16 in (im.dtype, flow.dtype):
+        return _gather_warp(im, flow.float())
     B, _, H, W = im.shape
     xs = torch.arange(W, dtype=flow.dtype, device=flow.device)
     ys = torch.arange(H, dtype=flow.dtype, device=flow.device)
@@ -179,7 +215,18 @@ def resolve_warp_fn(mode: str):
 
 
 def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Half-pixel-centred bilinear resize, NCHW (align_corners=False)."""
+    """Half-pixel-centred bilinear resize, NCHW (align_corners=False), in
+    ``x``'s dtype. bf16 resizes one axis at a time and rounds in between,
+    as ``jax.image.resize`` does: its einsum contracts the cheaper axis
+    first (height on a tie), so a 2x resize of a wider-than-tall map goes
+    width first when upsampling and height first when downsampling."""
+    if x.dtype != torch.bfloat16:
+        return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                             align_corners=False)
+    H, W = x.shape[2], x.shape[3]
+    h_first = out_h * W * (H + out_w) <= H * out_w * (W + out_h)
+    mid = (out_h, W) if h_first else (H, out_w)
+    x = F.interpolate(x, size=mid, mode="bilinear", align_corners=False)
     return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
                          align_corners=False)
 

@@ -131,6 +131,43 @@ def test_runtime_roundtrip_on_card(cuda):
         assert torch.equal(v, d["dpb"][k]), k
 
 
+def test_offset_diversity_bf16_launches_k1_matching_plain(cuda,
+                                                         monkeypatch):
+    """A bf16 OffsetDiversity on the card launches K1 once, on its bf16
+    maps and f32-cast flow, and K1 equals its plain version there."""
+    from dcvc_tpu_torch.models.video_net import OffsetDiversity
+    from dcvc_tpu_torch.ops.warp import RD_GATED_BLOCK_MODE
+
+    torch.manual_seed(0)
+    od = OffsetDiversity(dtype=torch.bfloat16).to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.rand(1, 48, 128, 256, generator=g, device=cuda)
+    aux = torch.rand(1, 53, 128, 256, generator=g, device=cuda)
+    flow = 3 * torch.randn(1, 2, 128, 256, generator=g, device=cuda)
+    calls = []
+    launch = bw._launch          # behind the wrapper's launch counter
+
+    def spy(im, fl, *spec):
+        calls.append((im.clone(), fl.clone(), spec))
+        return launch(im, fl, *spec)
+
+    monkeypatch.setattr(bw, "_launch", spy)
+    before = bw.block_warp_nchw.launches
+    with torch.no_grad():
+        out = od(x.bfloat16(), aux.bfloat16(), flow.bfloat16())
+    torch.cuda.synchronize()
+    assert bw.block_warp_nchw.launches == before + 1 and len(calls) == 1
+    assert out.dtype == torch.float32      # the f32 fusion bias, as in JAX
+    im, fl, spec = calls[0]             # Dh, Rv, BH, BW, base_mode, pad
+    assert im.dtype == torch.bfloat16 and im.shape == (32, 3, 128, 256)
+    assert RD_GATED_BLOCK_MODE.endswith(",".join(map(str, spec[:5])))
+    monkeypatch.undo()
+    ker = bw.block_warp_nchw(im, fl, *spec)
+    plain = bw.block_warp_plain_nchw(im, fl, *spec)
+    assert ker.dtype == torch.bfloat16
+    assert torch.equal(ker, plain)
+
+
 def _evc_input(cuda, seed=2):
     g = torch.Generator(device=cuda).manual_seed(seed)
     return torch.rand(1, 3, 256, 256, generator=g, device=cuda) * 4 - 1.5
