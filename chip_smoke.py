@@ -151,7 +151,18 @@ no result line):
      bytes, PSNR, peak memory; one profiled P-frame each: device ms, busy
      share, top kernels, cuDNN's FFT kernels); then evc_SS and evc_LL in
      bf16 on 10's image (warm-up + 3 round trips, the same limits, peak
-     memory beside 10's f32 figures, one profiled evc_LL encode);
+     memory beside 10's f32 figures, one profiled evc_LL encode); then
+     the other generations in bf16 on the seeds and content of 13-20:
+     intra_hem and the four zoo models code one image (a warm-up, then a
+     timed round trip; the AR loop's host ms apart), dmc_hem,
+     canfvc_dmc, dmc_tcm and dcvc_gen1 code I + 2 P after their bf16 I
+     models (intra_hem, intra_hem, mbt2018-mean, cheng2020-anchor), mc
+     exact and no kernel, dmc_hem's and dmc_tcm's last P-frame a warm-up
+     + 3 against f32 twins coded the same way here; then one bf16
+     block-mc P-frame each of dmc_hem, dmc_tcm (K1 4 + 4) and dcvc_gen1
+     (1 + 1), K1 against its plain version (atol 0) on the maps compress
+     warped and timed at the 64-channel full-resolution map. Every frame:
+     symbols equal, every gap <= 4e-3, none above 0.05;
  33. one JSON line per kernel, then the result line.
 
 Every path (7 to 32) runs with the kernels' launch counts set to 0 just
@@ -160,8 +171,9 @@ workers of 30 cannot report their counts: K1's are given as what the
 same calls launch in process (28, and 30's in-process run). Paths 7, 8, 9, 14, 19, 20's block-mc
 frame, 26 and 32's DC runtimes fail if they launched none of their
 kernels (14 and 19: not exactly 4 + 4; 20: not 1 + 1; 32: not 1 + 1 per
-P-frame, 2 + 1 with aligned_enc); paths 10-13, 15-18, 20's exact frames,
-21, 32's EVC and the training paths 22-25 and 27 have no kernel
+P-frame, 2 + 1 with aligned_enc, and its bf16 block-mc frames not 4 + 4,
+4 + 4 and 1 + 1); paths 10-13, 15-18, 20's exact frames, 21, 32's EVC and
+exact-mc frames and the training paths 22-25 and 27 have no kernel
 (convolutions, elementwise ops, host rANS and host AR loops only) and
 fail if either count is not 0. Launches made to compare a kernel with its plain version
 are not counted.
@@ -468,17 +480,23 @@ def _device_rows(averages) -> list:
 
 
 class _SymbolTap:
-    """Records the symbols a runtime's rANS coder encodes and the ones a
-    runtime's coder (``dec_rt``'s, by default the same) decodes, every
+    """Records the symbols a runtime's rANS coders encode and the ones a
+    runtime's coders (``dec_rt``'s, by default the same) decode, every
     substream in order; they are compared concatenated (the wavefront AR
-    decode asks for one wavefront at a time)."""
+    decode asks for one wavefront at a time). The AR runtimes code their
+    wavefront strings with a second, one-part coder (``_ar_coder``),
+    tapped into the same lists."""
 
     def __init__(self, rt, dec_rt=None):
+        self.enc, self.dec, self.enc_idx, self.dec_idx = [], [], [], []
+        dec_rt = dec_rt or rt
+        for name in ("entropy_coder", "_ar_coder"):
+            if getattr(rt, name, None) is not None:
+                self._tap(getattr(rt, name), getattr(dec_rt, name))
+
+    def _tap(self, enc_coder, dec_coder):
         import numpy as np
 
-        enc_coder = rt.entropy_coder
-        dec_coder = (dec_rt or rt).entropy_coder
-        self.enc, self.dec, self.enc_idx, self.dec_idx = [], [], [], []
         encode, decode = enc_coder.encode_with_indexes, dec_coder.decode_stream
 
         def tap_encode(symbols, indexes, table):
@@ -1139,7 +1157,7 @@ def _median3(runs, key):
 
 
 def _dpb_gap(enc: dict, dec: dict) -> float:
-    return max((enc[k] - dec[k]).abs().max().item()
+    return max((enc[k].float() - dec[k].float()).abs().max().item()
                for k in enc if enc[k] is not None)
 
 
@@ -1155,9 +1173,10 @@ def _hem_frames():
             for x in _content(1 + P_FRAMES)]
 
 
-def _hem_i_frame(irt, tap, x):
+def _hem_i_frame(irt, tap, x, tol=0.0):
     """intra_hem compress -> ushort-q container -> decompress: the
-    encoder's and the decoder's recon must be equal (gap 0.0)."""
+    encoder's and the decoder's recon must be equal (gap 0.0; bf16: within
+    ``tol``)."""
     from dcvc_tpu_torch.utils import stream
 
     q, q_index = stream.get_rounded_q(HEM_I_Q)
@@ -1170,18 +1189,18 @@ def _hem_i_frame(irt, tap, x):
     h, w, qi, s = stream.unpack_i_ushort_q(data)
     dec = irt.decompress(s, h, w, qi / 100)
     dec_ms = _sync_ms(t)
-    gap = (comp["x_hat"] - dec["x_hat"]).abs().max().item()
-    if not (tap.equal() and gap == 0.0):
+    gap = (comp["x_hat"].float() - dec["x_hat"].float()).abs().max().item()
+    if not (tap.equal() and gap <= tol):
         raise AssertionError(f"intra_hem I-frame: symbols equal "
                              f"{tap.equal()}, recon gap {gap}")
     return {"bytes": len(data), "encode_ms": enc_ms, "decode_ms": dec_ms,
             "max_recon_gap": gap}, comp, dec
 
 
-def _hem_p_frame(prt, tap, x, dpb_enc, dpb_dec, what):
+def _hem_p_frame(prt, tap, x, dpb_enc, dpb_dec, what, tol=RECON_TOL):
     """A HEM / CANF P-frame: compress -> rounded-q P container (the
     hem_p pin's header) -> decompress from the decoder's DPB; symbols
-    equal and DPB gap <= RECON_TOL."""
+    equal and DPB gap <= ``tol``."""
     import struct
 
     from dcvc_tpu_torch.utils import stream
@@ -1201,8 +1220,7 @@ def _hem_p_frame(prt, tap, x, dpb_enc, dpb_dec, what):
     dec_ms = _sync_ms(t)
     sym_ok = tap.equal()
     gap = _dpb_gap(comp["dpb"], dec["dpb"])
-    if not (sym_ok and gap <= RECON_TOL
-            and _finite(dec["dpb"]["ref_frame"])):
+    if not (sym_ok and gap <= tol and _finite(dec["dpb"]["ref_frame"])):
         raise AssertionError(f"{what}: symbols equal {sym_ok}, DPB gap {gap}")
     return {"bytes": len(data), "encode_ms": enc_ms, "decode_ms": dec_ms,
             "max_dpb_gap": gap}, comp, dec
@@ -1611,9 +1629,9 @@ def _pad64(x):
     return F.pad(x, (0, pr, 0, pb), mode="replicate")
 
 
-def _zoo_i_frame(rt, tap, x, what):
+def _zoo_i_frame(rt, tap, x, what, tol=F32_TOL):
     """compress -> packed substreams -> decompress: symbols equal, recon
-    gap 0.0 (limit F32_TOL)."""
+    gap 0.0 (limit ``tol``)."""
     from dcvc_tpu_torch.utils import stream
 
     t = time.time()
@@ -1625,8 +1643,8 @@ def _zoo_i_frame(rt, tap, x, what):
                         rt.latent_shape(x.shape[2], x.shape[3]))
     dec_ms = _sync_ms(t)
     sym_ok = tap.equal()
-    gap = (comp["x_hat"] - dec["x_hat"]).abs().max().item()
-    if not (sym_ok and gap <= F32_TOL and _finite(dec["x_hat"])):
+    gap = (comp["x_hat"].float() - dec["x_hat"].float()).abs().max().item()
+    if not (sym_ok and gap <= tol and _finite(dec["x_hat"])):
         raise AssertionError(f"{what}: symbols equal {sym_ok}, recon gap {gap}")
     return {"bytes": len(data), "encode_ms": enc_ms, "decode_ms": dec_ms,
             "max_recon_gap": gap}, comp, dec
@@ -1678,9 +1696,9 @@ def _zoo_dpb(irt, tap, x, name):
         {"ref_frame": dec["x_hat"], "ref_feature": None}
 
 
-def _tcm_p_frame(prt, tap, x, de, dd, what):
+def _tcm_p_frame(prt, tap, x, de, dd, what, tol=RECON_TOL):
     """A dmc_tcm P-frame: compress -> the bare payload -> decompress from
-    the decoder's DPB; symbols equal, DPB gap <= RECON_TOL."""
+    the decoder's DPB; symbols equal, DPB gap <= ``tol``."""
     t = time.time()
     comp = prt.compress(x, de["ref_frame"], de["ref_feature"])
     data = bytes(comp["bit_stream"])
@@ -1692,7 +1710,7 @@ def _tcm_p_frame(prt, tap, x, de, dd, what):
     enc = {"ref_frame": comp["x_hat"], "ref_feature": comp["feature"]}
     dec = {"ref_frame": dec["x_hat"], "ref_feature": dec["feature"]}
     sym_ok, gap = tap.equal(), _dpb_gap(enc, dec)
-    if not (sym_ok and gap <= RECON_TOL and _finite(dec["ref_frame"])):
+    if not (sym_ok and gap <= tol and _finite(dec["ref_frame"])):
         raise AssertionError(f"{what}: symbols equal {sym_ok}, DPB gap {gap}")
     return {"bytes": len(data), "encode_ms": enc_ms, "decode_ms": dec_ms,
             "max_dpb_gap": gap}, enc, dec, data
@@ -1771,13 +1789,16 @@ def _k1_checks(pairs, what) -> dict:
 
 
 def _k1_timing(im, flow) -> dict:
-    """K1's time at ``im``'s shape beside its bound and its plain version."""
+    """K1's time at ``im``'s shape and dtype beside its bound (the image
+    read and the output written in ``im``'s dtype, the flow read in its
+    own) and its plain version."""
     from dcvc_tpu_torch.ops import block_warp as bw
 
     M, C, H, W = im.shape
-    nbytes = 2 * im.numel() * 4 + flow.numel() * 4
+    nbytes = 2 * im.numel() * im.element_size() + flow.numel() * \
+        flow.element_size()
     flops = M * H * W * (12 + 9 * C)
-    row = {"shape": list(im.shape),
+    row = {"shape": list(im.shape), "dtype": str(im.dtype),
            "ms": _time_ms(lambda: bw.block_warp_nchw(im, flow, *K1_MC_SPEC),
                           20, 3),
            "plain_ms": _time_ms(lambda: bw.block_warp_plain_nchw(
@@ -1791,10 +1812,11 @@ def _k1_timing(im, flow) -> dict:
     return row
 
 
-def _block_mc(m, tap, compress, decompress, gap_fn, expected: dict, what):
+def _block_mc(m, tap, compress, decompress, gap_fn, expected: dict, what,
+              tol=RECON_TOL):
     """One P-frame with ``m.mc_warp_mode`` = the block warp, counting K1
     per side (must be ``expected``), symbols exact and ``gap_fn(comp,
-    dec)`` <= RECON_TOL; that call is the warm-up of three timed round
+    dec)`` <= ``tol``; that call is the warm-up of three timed round
     trips (median)."""
     from dcvc_tpu_torch.ops import block_warp as bw
 
@@ -1807,7 +1829,7 @@ def _block_mc(m, tap, compress, decompress, gap_fn, expected: dict, what):
         dec = decompress(comp)
         dec_ms = _sync_ms(t)
         sym_ok, gap = tap.equal(), gap_fn(comp, dec)
-        if not (sym_ok and gap <= RECON_TOL):
+        if not (sym_ok and gap <= tol):
             raise AssertionError(f"{what}: symbols equal {sym_ok}, gap {gap}")
         return {"encode_ms": enc_ms, "decode_ms": dec_ms, "max_gap": gap}, n
 
@@ -1866,10 +1888,11 @@ def tcm_block_phase(results: dict):
     results["tcm_block"] = row
 
 
-def _gen1_p_frame(prt, tap, x, ref_enc, ref_dec, clock, what):
+def _gen1_p_frame(prt, tap, x, ref_enc, ref_dec, clock, what,
+                  tol=RECON_TOL):
     """A dcvc_gen1 P-frame: compress -> four packed substreams ->
     decompress from the decoder's reference; symbols equal, recon gap <=
-    RECON_TOL. The host ms of each substream's entropy coding: mv_z and z
+    ``tol``. The host ms of each substream's entropy coding: mv_z and z
     (bit-estimator rANS), mv_y and y (the wavefront AR loops)."""
     from dcvc_tpu_torch.utils import stream
 
@@ -1896,8 +1919,9 @@ def _gen1_p_frame(prt, tap, x, ref_enc, ref_dec, clock, what):
     dec_ms = _sync_ms(t)
     ar = clock.take()
     sym_ok = tap.equal()
-    gap = (comp["recon_image"] - dec["recon_image"]).abs().max().item()
-    if not (sym_ok and gap <= RECON_TOL and _finite(dec["recon_image"])):
+    gap = (comp["recon_image"].float() - dec["recon_image"].float()).abs() \
+        .max().item()
+    if not (sym_ok and gap <= tol and _finite(dec["recon_image"])):
         raise AssertionError(f"{what}: symbols equal {sym_ok}, gap {gap}")
     return {"bytes": len(data), "encode_ms": enc_ms, "decode_ms": dec_ms,
             "max_recon_gap": gap,
@@ -3386,6 +3410,261 @@ def _evc_bf16(results: dict) -> dict:
     return rows
 
 
+BF16_IMAGES = ("intra_hem", "bmshj2018-factorized", "bmshj2018-hyperprior",
+               "mbt2018-mean", "cheng2020-anchor")
+BF16_VIDEO = {"dmc_hem": "intra_hem", "canfvc_dmc": "intra_hem",
+              "dmc_tcm": TCM_I, "dcvc_gen1": GEN1_I}   # P model: I model
+BF16_TWINS = ("dmc_hem", "dmc_tcm")      # P-frames timed against f32 twins
+
+
+def _gen_build(name, dtype):
+    """``name`` through the registry with its f32 phase's seed (gen-1 with
+    13-20's latent gain) and ``dtype``; (module, updated runtime)."""
+    import torch
+
+    from dcvc_tpu_torch.models.registry import build
+
+    module, rt = build(name, seed={**HEM_SEEDS, **ZOO_SEEDS, **P_SEEDS}[name],
+                       dtype=dtype)
+    if name == "dcvc_gen1":
+        with torch.no_grad():
+            module.mvEncoder[-1].weight.mul_(GEN1_LATENT_GAIN)
+            module.contextualEncoder[-1].weight.mul_(GEN1_LATENT_GAIN)
+    rt.update()
+    return module, rt
+
+
+def _gen_i_frame(name, rt, tap, x, tol):
+    if name == "intra_hem":
+        return _hem_i_frame(rt, tap, x, tol)
+    return _zoo_i_frame(rt, tap, x, name, tol)
+
+
+def _gen_p_frame(name, prt, tap, x, de, dd, clock, tol):
+    """One P-frame of ``name``: (row, encoder DPB, decoder DPB); gen-1's
+    DPB is {"ref_frame"}."""
+    what = f"{name} {'bf16' if tol == BF16_TOL else 'f32'}"
+    if name in ("dmc_hem", "canfvc_dmc"):
+        row, comp, dec = _hem_p_frame(prt, tap, x, de, dd, what, tol)
+        return row, comp["dpb"], dec["dpb"]
+    if name == "dmc_tcm":
+        row, enc, dec, _ = _tcm_p_frame(prt, tap, x, de, dd, what, tol)
+        return row, enc, dec
+    row, comp, dec = _gen1_p_frame(prt, tap, x, de["ref_frame"],
+                                   dd["ref_frame"], clock, what, tol)
+    return row, {"ref_frame": comp["recon_image"]}, \
+        {"ref_frame": dec["recon_image"]}
+
+
+def _gen_chain(name, dtype, xs, clock, p_reps):
+    """I + P_FRAMES of P model ``name`` after its I model, each frame's
+    decoder DPB the next frame's reference; the last P-frame ``p_reps``
+    times (the first a warm-up). (rows, I model's runtime, P module,
+    runtime, tap, encoder DPB, decoder DPB)."""
+    import torch
+
+    tol = BF16_TOL if dtype is not None else None
+    iname = BF16_VIDEO[name]
+    _, irt = _gen_build(iname, dtype)
+    module, prt = _gen_build(name, dtype)
+    taps = {"i": _SymbolTap(irt), "p": _SymbolTap(prt)}
+    i_row, comp, dec = _gen_i_frame(
+        iname, irt, taps["i"], xs[0],
+        tol if tol else (0.0 if iname == "intra_hem" else F32_TOL))
+    i_row["recon_dtype"] = str(comp["x_hat"].dtype)
+    clock.take()
+    de = {"ref_frame": comp["x_hat"], "ref_feature": None, "ref_y": None,
+          "ref_mv_y": None}
+    dd = dict(de, ref_frame=dec["x_hat"])
+    if name == "dmc_tcm":
+        de, dd = ({"ref_frame": d["ref_frame"], "ref_feature": None}
+                  for d in (de, dd))
+    rows = [dict(i_row, frame=0, type="I", model=iname)]
+    for i in range(1, 1 + P_FRAMES):
+        reps = p_reps if i == P_FRAMES else 1
+        runs = []
+        for _ in range(reps):
+            runs.append(_gen_p_frame(name, prt, taps["p"], xs[i], de, dd,
+                                     clock, tol or RECON_TOL))
+            ar = clock.take()
+        row, e, d = runs[-1]
+        row = dict(row, frame=i, type="P", model=name,
+                   dpb_dtypes={k: str(v.dtype) for k, v in d.items()
+                               if v is not None})
+        if ar["encode"]:
+            row["ar_host_ms"] = {k: sum(v) for k, v in ar.items()}
+        if reps > 2:
+            row.update(encode_ms_median3=_median3([r[0] for r in runs],
+                                                  "encode_ms"),
+                       decode_ms_median3=_median3([r[0] for r in runs],
+                                                  "decode_ms"))
+        rows.append(row)
+        de, dd = e, d
+    torch.cuda.synchronize()
+    return rows, irt, module, prt, taps["p"], de, dd
+
+
+def _gen_block_mc(name, module, prt, tap, x, de, dd) -> dict:
+    """One bf16 block-mc P-frame of dmc_hem / dmc_tcm (K1 4 + 4) or
+    dcvc_gen1 (1 + 1), symbols equal and gaps within BF16_TOL; K1 against
+    its plain version (atol 0) on the maps compress warped, and timed at
+    the 64-channel full-resolution map (its bound with the flow in f32, the
+    kernel's input; and the wrapper call with the model's own flow, its
+    cast included)."""
+    from dcvc_tpu_torch.ops import block_warp as bw
+    from dcvc_tpu_torch.ops.warp import bilinear_down2
+    from dcvc_tpu_torch.utils import stream
+
+    seen, hooks = {}, []
+    if name == "dcvc_gen1":
+        expected = {"compress": 1, "decompress": 1}
+        mc = module.motion_compensation
+
+        def spy(ref, mv):
+            seen.setdefault("mc", (ref, mv))
+            return mc(ref, mv)
+
+        module.motion_compensation = spy
+        compress = lambda: prt.compress(de["ref_frame"], x)   # noqa: E731
+        decompress = lambda c: prt.decompress(   # noqa: E731
+            dd["ref_frame"], c["mv_y_string"], c["mv_z_string"],
+            c["y_string"], c["z_string"], x.shape[2], x.shape[3])
+        gap_fn = lambda c, d: (c["recon_image"].float()   # noqa: E731
+                               - d["recon_image"].float()).abs().max().item()
+    else:
+        expected = {"compress": 4, "decompress": 4}
+        hooks = [module.mv_decoder.register_forward_hook(
+                     lambda mod, i, out: seen.setdefault("mv", out)),
+                 module.feature_extractor.register_forward_hook(
+                     lambda mod, i, out: seen.setdefault("features", out))]
+        if name == "dmc_hem":
+            mv_q, _ = stream.get_rounded_q(HEM_MV_Q)
+            y_q, _ = stream.get_rounded_q(HEM_Y_Q)
+            compress = lambda: prt.compress(x, de, mv_q, y_q)   # noqa: E731
+            decompress = lambda c: prt.decompress(   # noqa: E731
+                dd, c["bit_stream"], x.shape[2], x.shape[3], mv_q, y_q)
+            gap_fn = lambda c, d: _dpb_gap(c["dpb"], d["dpb"])   # noqa: E731
+        else:
+            compress = lambda: prt.compress(   # noqa: E731
+                x, de["ref_frame"], de["ref_feature"])
+            decompress = lambda c: prt.decompress(   # noqa: E731
+                dd["ref_frame"], dd["ref_feature"], c["bit_stream"],
+                x.shape[2], x.shape[3])
+            gap_fn = lambda c, d: max(   # noqa: E731
+                (c[k].float() - d[k].float()).abs().max().item()
+                for k in ("x_hat", "feature"))
+    try:
+        row = _block_mc(module, tap, compress, decompress, gap_fn, expected,
+                        f"{name} bf16 block mc", BF16_TOL)
+    finally:
+        for h in hooks:
+            h.remove()
+        if name == "dcvc_gen1":
+            del module.motion_compensation
+    if name == "dcvc_gen1":
+        import torch
+
+        ref, mv = seen["mc"]
+        with torch.no_grad():
+            f1 = module.feature_extract(ref)
+        pairs = (("context_64ch", f1, mv),)
+    else:
+        mv = seen["mv"]
+        mv2 = bilinear_down2(mv) / 2
+        mv3 = bilinear_down2(mv2) / 2
+        f1, f2, f3 = seen["features"]
+        pairs = (("frame_3ch", de["ref_frame"], mv), ("context1_64ch", f1, mv),
+                 ("context2_64ch", f2, mv2), ("context3_64ch", f3, mv3))
+    row["k1_vs_plain"] = _k1_checks(pairs, f"{name} bf16")
+    k1 = _k1_timing(f1, mv.float())
+    k1["flow_dtype"] = str(mv.dtype)
+    k1["ms_model_flow"] = _time_ms(
+        lambda: bw.block_warp_nchw(f1, mv, *K1_MC_SPEC), 20, 3)
+    row["k1_64ch_full_res"] = k1
+    return row
+
+
+def _gens_bf16(results: dict) -> dict:
+    """The dtype option of HEM, CANF-VC, TCM, gen-1 and the zoo at 1080p:
+    intra_hem and the four zoo models code one image (a warm-up, then a
+    timed round trip); dmc_hem, canfvc_dmc, dmc_tcm and dcvc_gen1 code I +
+    P_FRAMES after their bf16 I models, mc exact (no kernel); dmc_hem's
+    and dmc_tcm's last P-frame a warm-up + 3 against f32 twins coded the
+    same way here, the others' a warm-up + 1; then one bf16 block-mc
+    P-frame of dmc_hem, dmc_tcm and dcvc_gen1 (K1). Every frame: symbols
+    equal, every recon / DPB gap <= BF16_TOL (so none above
+    BF16_DESYNC); the host AR loops timed apart."""
+    import torch
+
+    bf = torch.bfloat16
+    xs = _hem_frames()
+    zoo_x = _pad64(_image(HEIGHT, WIDTH, 7))
+    out = {"images": {}, "video": {}, "block_mc": {}}
+    with _ArClock() as clock:
+        for name in BF16_IMAGES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            _, rt = _gen_build(name, bf)
+            tap = _SymbolTap(rt)
+            x = xs[0] if name == "intra_hem" else zoo_x
+            _gen_i_frame(name, rt, tap, x, BF16_TOL)
+            clock.take()
+            row, comp, _ = _gen_i_frame(name, rt, tap, x, BF16_TOL)
+            ar = clock.take()
+            launches = _no_kernel_launched(f"{name} bf16 image")
+            f32 = (results.get("hem", {}).get("i_frame", {})
+                   if name == "intra_hem" else results.get("zoo", {})
+                   .get(name, {}))
+            row.update(dtype="bfloat16", recon_dtype=str(comp["x_hat"].dtype),
+                       symbols_equal=True,
+                       bpp=row["bytes"] * 8 / (HEIGHT * WIDTH),
+                       psnr=_psnr(comp["x_hat"], x[:, :, :HEIGHT, :WIDTH]),
+                       peak_mem_gib=_gib(torch.cuda.max_memory_allocated()),
+                       f32_encode_ms=f32.get("encode_ms_median3",
+                                             f32.get("encode_ms")),
+                       f32_decode_ms=f32.get("decode_ms_median3",
+                                             f32.get("decode_ms")),
+                       f32_bytes=f32.get("bytes"), launches=launches)
+            if ar["encode"]:
+                row["ar_host_ms"] = {k: sum(v) for k, v in ar.items()}
+            print(f"bf16 {name} {json.dumps(row)}", flush=True)
+            out["images"][name] = row
+            del rt, tap, comp
+        for name in BF16_VIDEO:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reps = 4 if name in BF16_TWINS else 2
+            _reset_counts()
+            rows, irt, module, prt, tap, de, dd = _gen_chain(
+                name, bf, xs, clock, reps)
+            del irt
+            peak = _gib(torch.cuda.max_memory_allocated())
+            row = {"frames": rows, "peak_mem_gib": peak,
+                   "launches": _no_kernel_launched(f"{name} bf16")}
+            if name in BF16_TWINS:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                f32_rows = _gen_chain(name, None, xs, clock, 4)[0]
+                row["f32_twin"] = {
+                    "launches": _no_kernel_launched(f"{name} f32 twin"),
+                    "p_encode_ms_median3": f32_rows[-1]["encode_ms_median3"],
+                    "p_decode_ms_median3": f32_rows[-1]["decode_ms_median3"],
+                    "p_bytes": f32_rows[-1]["bytes"],
+                    "peak_mem_gib": _gib(torch.cuda.max_memory_allocated())}
+            if name != "canfvc_dmc":
+                block = _gen_block_mc(name, module, prt, tap,
+                                      xs[-1].roll(4, dims=3), de, dd)
+                clock.take()
+                out["block_mc"][name] = block
+                print(f"bf16 {name} block_mc {json.dumps(block)}", flush=True)
+            print(f"bf16 {name} {json.dumps(row)} ({_card()})", flush=True)
+            out["video"][name] = row
+            del module, prt, tap, de, dd
+    return out
+
+
 def bf16_phase(results: dict):
     """The dtype option on the card: IntraNoAR + DMC built with
     ``dtype=torch.bfloat16`` code I + P_FRAMES at 1080p with aligned_enc
@@ -3469,7 +3748,8 @@ def bf16_phase(results: dict):
         print(f"bf16 vs f32 dc {dt} {json.dumps(row)} ({_card()})",
               flush=True)
     results["bf16"] = {"dc": chains, "launches": counts, "k1": k1,
-                       "timing": timing, "evc": _evc_bf16(results)}
+                       "timing": timing, "evc": _evc_bf16(results),
+                       "gens": _gens_bf16(results)}
 
 
 def main() -> int:
@@ -3539,7 +3819,23 @@ def main() -> int:
             "tcm_runtimes": results["tcm"]["launches"][kernel],
             "gen1_runtimes": results["gen1"]["launches"][kernel],
             "zoo_tcm_cli": results["zoo_tcm_cli"]["launches"][kernel],
-            "evc_runtimes_bf16": results["bf16"]["evc"]["launches"][kernel]}
+            "evc_runtimes_bf16": results["bf16"]["evc"]["launches"][kernel],
+            "gens_images_bf16": sum(
+                r["launches"][kernel]
+                for r in results["bf16"]["gens"]["images"].values()),
+            "gens_exact_mc_bf16": sum(
+                r["launches"][kernel]
+                for r in results["bf16"]["gens"]["video"].values()),
+            "gens_f32_twins": sum(
+                r["f32_twin"]["launches"][kernel]
+                for r in results["bf16"]["gens"]["video"].values()
+                if "f32_twin" in r)}
+    def bf16_block_mc(kernel):
+        """Launches on the bf16 block-mc P-frames of HEM, TCM and gen-1."""
+        rows = results["bf16"]["gens"]["block_mc"]
+        return {f"{k}_block_mc_bf16": rows[n]["launches"][kernel]
+                for k, n in (("hem", "dmc_hem"), ("tcm", "dmc_tcm"),
+                             ("gen1", "dcvc_gen1"))}
     def training_launches(kernel):
         """Launches on the training paths (0 on all but the trained
         checkpoint's coding, checked in their phases)."""
@@ -3569,6 +3865,7 @@ def main() -> int:
             "hem_block_mc": results["hem_block"]["launches"]["block_warp"],
             "tcm_block_mc": results["tcm_block"]["launches"]["block_warp"],
             "gen1_block_mc": results["gen1_block"]["launches"]["block_warp"],
+            **bf16_block_mc("block_warp"),
             **training_launches("block_warp"),
             **serving_launches("block_warp")},
         "max_abs_err": max(r["max_abs_err"] for n, r in k1.items()
@@ -3598,6 +3895,15 @@ def main() -> int:
         "tcm_gen1_mc_max_abs_err": max(
             r["max_abs_err"] for ph in ("tcm_block", "gen1_block")
             for r in results[ph]["k1_vs_plain"].values()),
+        "mc_64ch_bf16_models": {
+            n: {k: r["k1_64ch_full_res"][k] for k in (
+                "shape", "dtype", "flow_dtype", "ms", "ms_model_flow",
+                "plain_ms", "bound_ms", "bound_by", "share_of_bound")}
+            for n, r in results["bf16"]["gens"]["block_mc"].items()},
+        "mc_bf16_models_max_abs_err": max(
+            c["max_abs_err"]
+            for r in results["bf16"]["gens"]["block_mc"].values()
+            for c in r["k1_vs_plain"].values()),
     }, {
         "name": "band_copy", "route": "cuda",
         "source": "dcvc_tpu_torch/csrc/band_copy.cu",
@@ -3615,6 +3921,7 @@ def main() -> int:
                              ["band_copy"],
                              "gen1_block_mc": results["gen1_block"]
                              ["launches"]["band_copy"],
+                             **bf16_block_mc("band_copy"),
                              **training_launches("band_copy"),
                              **serving_launches("band_copy")},
         "max_abs_err": max(r["max_abs_err"]

@@ -13,7 +13,10 @@ to ``dtype`` (flax ``nn.Conv(dtype=...)``), and activations flow in
 ``dtype``; PyTorch's type promotion does the rest as JAX's does (bf16
 with f32 gives f32, bf16 with a Python scalar gives bf16). A module with
 the option calls ``set_compute_dtype`` on itself, which reaches every
-convolution below it.
+convolution below it. A convolution without a compute dtype takes a bf16
+input in its parameters' dtype, as flax promotes the input of an
+``nn.Conv(dtype=None)``: the HEM, TCM, gen-1 and zoo models pass the dtype
+to some layers only, as the JAX package's constructors do.
 """
 
 from __future__ import annotations
@@ -31,14 +34,15 @@ class Conv2d(nn.Conv2d):
     a dtype convolves the input and the weight cast to it, rounds, then
     adds the bias cast to it, in flax's order: with the bias fused, a bf16
     convolution differs from the JAX package's in about a quarter of its
-    outputs by an ulp."""
+    outputs by an ulp. Without a compute dtype a bf16 input is widened to
+    the parameters' dtype first (flax's ``promote_dtype``)."""
 
     compute_dtype = None
 
     def forward(self, x):
         dt = self.compute_dtype
         if dt is None:
-            return super().forward(x)
+            return super().forward(x.to(self.weight.dtype))
         y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
         return y if self.bias is None else y + self.bias.to(dt).view(-1, 1, 1)
 
@@ -51,11 +55,25 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     def forward(self, x):
         dt = self.compute_dtype
         if dt is None:
-            return super().forward(x)
+            return super().forward(x.to(self.weight.dtype))
         y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
                                self.stride, self.padding, self.output_padding,
                                self.groups, self.dilation)
         return y if self.bias is None else y + self.bias.to(dt).view(-1, 1, 1)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with a compute dtype (flax ``nn.Dense(dtype=...)``):
+    the input and the weight cast to it, the product in it."""
+
+    compute_dtype = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x.to(self.weight.dtype))
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 def set_compute_dtype(module: nn.Module, dtype) -> nn.Module:

@@ -6,6 +6,10 @@ DCVC-TCM/src/ops/parametrizers.py:21): ``beta`` and ``gamma`` are stored as
 sqrt(value + pedestal) and lower-bounded on use, so published checkpoints
 load as they are. The ``einsum("bhwc,oc->bhwo", x * x, gamma)`` of the JAX
 version is a 1x1 convolution here, as in the reference.
+
+GDN has no compute dtype of its own, as in the JAX package: ``x * x`` (or
+``|x|``) is taken in the input's dtype, rounded there, and the product with
+the f32 ``gamma`` widens it, so a bf16 input gives an f32 output.
 """
 
 from __future__ import annotations
@@ -43,9 +47,9 @@ class GDN(nn.Module):
         beta = _reparam_get(self.beta, self.beta_min)
         gamma = _reparam_get(self.gamma, 0.0).view(C, C, 1, 1)
         if self.squared:
-            norm = torch.sqrt(F.conv2d(x * x, gamma, beta))
+            norm = torch.sqrt(F.conv2d((x * x).to(gamma.dtype), gamma, beta))
         else:
-            norm = F.conv2d(torch.abs(x), gamma, beta)
+            norm = F.conv2d(torch.abs(x).to(gamma.dtype), gamma, beta)
         return x * norm if self.inverse else x / norm
 
 

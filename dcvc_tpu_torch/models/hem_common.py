@@ -15,6 +15,10 @@ The hyper encoders are DC's (``video_net.HyperEnc`` /
 ``HyperEncReduced``: same layers, same keys), and so are the HEM feature
 pyramid and context fusion (``FeatureExtractor`` /
 ``MultiScaleContextFusion`` at one width).
+
+``dtype`` (None = f32, or ``torch.bfloat16``) is the compute dtype of
+``layers/blocks.py``, given to every layer here as the JAX constructors
+give it; parameters stay f32.
 """
 
 from __future__ import annotations
@@ -25,12 +29,15 @@ import torch
 import torch.nn as nn
 
 from ..layers.blocks import (
+    LeakyReLU,
+    Linear,
     ResBlock,
     ResidualBlock,
     ResidualBlockUpsample,
     ResidualBlockWithStride,
     conv,
     max_pool2,
+    set_compute_dtype,
     subpel_conv,
 )
 
@@ -38,53 +45,56 @@ from ..layers.blocks import (
 class HemEncoder(nn.Sequential):
     """get_enc_dec_models' encoder: 16x down residual stack."""
 
-    def __init__(self, in_ch: int, channel: int):
+    def __init__(self, in_ch: int, channel: int, dtype=None):
         ch = channel
         super().__init__(
             ResidualBlockWithStride(in_ch, ch, 2), ResidualBlock(ch, ch),
             ResidualBlockWithStride(ch, ch, 2), ResidualBlock(ch, ch),
             ResidualBlockWithStride(ch, ch, 2), ResidualBlock(ch, ch),
             conv(ch, ch, 3, 2))
+        set_compute_dtype(self, dtype)
 
 
 class HemDecoder(nn.Sequential):
-    def __init__(self, channel: int, out_ch: int):
+    def __init__(self, channel: int, out_ch: int, dtype=None):
         ch = channel
         super().__init__(
             ResidualBlock(ch, ch), ResidualBlockUpsample(ch, ch, 2),
             ResidualBlock(ch, ch), ResidualBlockUpsample(ch, ch, 2),
             ResidualBlock(ch, ch), ResidualBlockUpsample(ch, ch, 2),
             ResidualBlock(ch, ch), subpel_conv(ch, out_ch, 2))
+        set_compute_dtype(self, dtype)
 
 
-def HemHyperDec(z_ch: int, y_ch: int) -> nn.Sequential:
+def HemHyperDec(z_ch: int, y_ch: int, dtype=None) -> nn.Sequential:
     """z -> 2 * y_ch prior features (video_net.py:264-274)."""
     y, y15 = y_ch, y_ch * 3 // 2
-    return nn.Sequential(
-        conv(z_ch, y, 3), nn.LeakyReLU(), subpel_conv(y, y, 2),
-        nn.LeakyReLU(), conv(y, y15, 3), nn.LeakyReLU(),
-        subpel_conv(y15, y15, 2), nn.LeakyReLU(), conv(y15, y * 2, 3))
+    return set_compute_dtype(nn.Sequential(
+        conv(z_ch, y, 3), LeakyReLU(), subpel_conv(y, y, 2),
+        LeakyReLU(), conv(y, y15, 3), LeakyReLU(),
+        subpel_conv(y15, y15, 2), LeakyReLU(), conv(y15, y * 2, 3)), dtype)
 
 
-def Conv3Stack(in_ch: int, features: Sequence[int]) -> nn.Sequential:
+def Conv3Stack(in_ch: int, features: Sequence[int],
+               dtype=None) -> nn.Sequential:
     """conv3x3 layers with LeakyReLU(0.2) between (prior fusion / spatial
     prior)."""
     layers, c = [], in_ch
     for i, f in enumerate(features):
         if i:
-            layers.append(nn.LeakyReLU(0.2))
+            layers.append(LeakyReLU(0.2))
         layers.append(conv(c, f, 3))
         c = f
-    return nn.Sequential(*layers)
+    return set_compute_dtype(nn.Sequential(*layers), dtype)
 
 
 class SELayer(nn.Module):
     def __init__(self, channel: int, reduction: int = 16):
         super().__init__()
         hidden = max(channel // reduction, 1)
-        self.fc = nn.Sequential(nn.Linear(channel, hidden, bias=False),
+        self.fc = nn.Sequential(Linear(channel, hidden, bias=False),
                                 nn.ReLU(),
-                                nn.Linear(hidden, channel, bias=False),
+                                Linear(hidden, channel, bias=False),
                                 nn.Sigmoid())
 
     def forward(self, x):
@@ -95,7 +105,7 @@ class ConvBlockResidual(nn.Module):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.conv = nn.Sequential(
-            conv(in_ch, out_ch, 3), nn.LeakyReLU(0.01), conv(out_ch, out_ch, 3),
+            conv(in_ch, out_ch, 3), LeakyReLU(0.01), conv(out_ch, out_ch, 3),
             SELayer(out_ch))
         self.up_dim = conv(in_ch, out_ch, 1)
 
@@ -107,7 +117,7 @@ class HemUNet(nn.Module):
     """UNet of ConvBlockResidual with a ReLU ResBlock bottleneck
     (video_net.py:182)."""
 
-    def __init__(self, in_ch: int = 64, out_ch: int = 64):
+    def __init__(self, in_ch: int = 64, out_ch: int = 64, dtype=None):
         super().__init__()
         self.conv1 = ConvBlockResidual(in_ch, 32)
         self.conv2 = ConvBlockResidual(32, 64)
@@ -118,6 +128,7 @@ class HemUNet(nn.Module):
         self.up_conv3 = ConvBlockResidual(128, 64)
         self.up2 = subpel_conv(64, 32, 2)
         self.up_conv2 = ConvBlockResidual(64, out_ch)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         x1 = self.conv1(x)
@@ -131,15 +142,16 @@ class DeQuantizationModule(nn.Module):
     """Post-filter of the CANF-VC fork (video_net.py:291-307)."""
 
     def __init__(self, in_ch: int = 3, out_ch: int = 3, num_filters: int = 64,
-                 num_layers: int = 8):
+                 num_layers: int = 8, dtype=None):
         super().__init__()
         nf = num_filters
         self.conv1 = conv(in_ch, nf, 3)
         self.resblock = nn.ModuleList(
-            nn.Sequential(conv(nf, nf, 3), nn.LeakyReLU(0.2), conv(nf, nf, 3))
+            nn.Sequential(conv(nf, nf, 3), LeakyReLU(0.2), conv(nf, nf, 3))
             for _ in range(num_layers))
         self.conv2 = conv(nf, nf, 3)
         self.conv3 = conv(nf, out_ch, 3)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         c1 = self.conv1(x)

@@ -10,6 +10,8 @@ Child names are the reference's (``port_hem.convert_intra_hem``):
 ``enc``, ``dec``, ``refine.0`` (UNet) / ``refine.1`` (conv),
 ``hyper_enc``, ``hyper_dec``, ``y_prior_fusion``, ``y_spatial_prior``,
 ``bit_estimator_z``, ``q_basic`` (1, N, 1, 1), ``q_scale`` (4, 1, 1, 1).
+``dtype`` (None = f32, or ``torch.bfloat16``) reaches every network, as
+``IntraNoARHem(dtype=...)`` gives it; parameters stay f32.
 """
 
 from __future__ import annotations
@@ -29,16 +31,17 @@ Q_SCALE_INIT = (1.541, 1.083, 0.729, 0.500)
 
 
 class IntraNoARHem(DualPriorCodec):
-    def __init__(self, N: int = 192, anchor_num: int = 4):
+    def __init__(self, N: int = 192, anchor_num: int = 4, dtype=None):
         super().__init__()
         self.N = N
-        self.enc = HemEncoder(3, N)
-        self.dec = HemDecoder(N, 16)
-        self.refine = nn.Sequential(HemUNet(16, 16), conv(16, 3, 3))
-        self.hyper_enc = HyperEnc(N, N)
-        self.hyper_dec = HemHyperDec(N, N)
-        self.y_prior_fusion = Conv3Stack(N * 2, (N * 3, N * 3, N * 3))
-        self.y_spatial_prior = Conv3Stack(N * 4, (N * 3, N * 3, N * 2))
+        self.enc = HemEncoder(3, N, dtype)
+        self.dec = HemDecoder(N, 16, dtype)
+        self.refine = nn.Sequential(HemUNet(16, 16, dtype),
+                                    conv(16, 3, 3, dtype=dtype))
+        self.hyper_enc = HyperEnc(N, N, dtype)
+        self.hyper_dec = HemHyperDec(N, N, dtype)
+        self.y_prior_fusion = Conv3Stack(N * 2, (N * 3, N * 3, N * 3), dtype)
+        self.y_spatial_prior = Conv3Stack(N * 4, (N * 3, N * 3, N * 2), dtype)
         self.bit_estimator_z = BitEstimator(N)
         self.q_basic = nn.Parameter(torch.ones(1, N, 1, 1))
         self.q_scale = nn.Parameter(
@@ -48,11 +51,13 @@ class IntraNoARHem(DualPriorCodec):
         return self.refine(self.dec(y))
 
 
-def build_intra_hem(N: int = 192, seed: int = 0, device=None) -> IntraNoARHem:
-    """IntraNoARHem with seeded random weights, on ``device`` (the card
-    unless ``device="cpu"``), in eval mode."""
+def build_intra_hem(N: int = 192, seed: int = 0, device=None,
+                    dtype=None) -> IntraNoARHem:
+    """IntraNoARHem with seeded random weights (the same for any
+    ``dtype``), on ``device`` (the card unless ``device="cpu"``), in eval
+    mode."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        module = IntraNoARHem(N)
+        module = IntraNoARHem(N, dtype=dtype)
     return module.to(dev).eval()

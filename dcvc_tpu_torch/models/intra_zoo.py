@@ -13,6 +13,12 @@ dropped, as ``utils/checkpoint.py`` does.
 Each model has the methods its runtime calls: ``analyze``, ``synthesize``
 and, by family, ``scales_from_z`` / ``params_from_z`` / ``hyper_from_z``;
 ``forward`` is the estimated-bits pass.
+
+``dtype`` (None = f32, or ``torch.bfloat16``) reaches the layers the JAX
+constructors give it to: the analysis and synthesis transforms (for
+Cheng2020 their residual blocks, not the last layers) and the entropy
+parameter net; the hyper transforms, the GDNs, the masked convolution and
+the bottleneck stay f32. ``mbt2018`` takes no dtype (ROADMAP R4).
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import torch.nn as nn
 
 from ..device import resolve_device
 from ..entropy.bottleneck import EntropyBottleneck
-from ..layers.blocks import ResidualBlock, conv, deconv, leaky_relu, subpel_conv
+from ..layers.blocks import (ResidualBlock, conv, deconv, leaky_relu,
+                             set_compute_dtype, subpel_conv)
 from ..layers.gdn import GDN
 from . import priors
 from .video_dcvc import EntropyParams1x1, MaskedConv2d
@@ -40,12 +47,15 @@ def _probs_to_bits(likelihood):
 def _gaussian_bits(y_q, scales):
     """CompressAI GaussianConditional._likelihood (DCVC/src/entropy_models/
     entropy_models.py:439-460): abs-folded, scale floor 0.11, likelihood
-    floor 1e-9."""
+    floor 1e-9. A bf16 latent is widened before the subtraction and its
+    bits come back in bf16, as in the JAX package."""
     scales = torch.clamp_min(scales, SCALES_MIN)
     v = torch.abs(y_q)
-    probs = (torch.special.ndtr((0.5 - v) / scales)
-             - torch.special.ndtr((-0.5 - v) / scales))
-    return -torch.log2(torch.clamp_min(probs, 1e-9))
+    wide = torch.promote_types(v.dtype, torch.float32)
+    v32, s32 = v.to(wide), scales.to(wide)
+    probs = (torch.special.ndtr((0.5 - v32) / s32)
+             - torch.special.ndtr((-0.5 - v32) / s32))
+    return -torch.log2(torch.clamp_min(probs, 1e-9)).to(v.dtype)
 
 
 def _zoo_quant(quant_mode: str, generator):
@@ -58,26 +68,27 @@ def _zoo_quant(quant_mode: str, generator):
     return priors.resolve_quant(quant_mode)
 
 
-def _g_a(N: int, M: int) -> nn.Sequential:
+def _g_a(N: int, M: int, dtype=None) -> nn.Sequential:
     """conv5x5-s2 + GDN, three times, then conv5x5-s2 to M."""
-    return nn.Sequential(conv(3, N, 5, 2), GDN(N), conv(N, N, 5, 2), GDN(N),
-                         conv(N, N, 5, 2), GDN(N), conv(N, M, 5, 2))
+    return set_compute_dtype(nn.Sequential(
+        conv(3, N, 5, 2), GDN(N), conv(N, N, 5, 2), GDN(N),
+        conv(N, N, 5, 2), GDN(N), conv(N, M, 5, 2)), dtype)
 
 
-def _g_s(N: int, M: int) -> nn.Sequential:
-    return nn.Sequential(
+def _g_s(N: int, M: int, dtype=None) -> nn.Sequential:
+    return set_compute_dtype(nn.Sequential(
         deconv(M, N, 5, 2), GDN(N, inverse=True), deconv(N, N, 5, 2),
         GDN(N, inverse=True), deconv(N, N, 5, 2), GDN(N, inverse=True),
-        deconv(N, 3, 5, 2))
+        deconv(N, 3, 5, 2)), dtype)
 
 
 class FactorizedPrior(nn.Module):
-    def __init__(self, N: int = 128, M: int = 192):
+    def __init__(self, N: int = 128, M: int = 192, dtype=None):
         super().__init__()
         self.N, self.M = N, M
         self.entropy_bottleneck = EntropyBottleneck(M)
-        self.g_a = _g_a(N, M)
-        self.g_s = _g_s(N, M)
+        self.g_a = _g_a(N, M, dtype)
+        self.g_s = _g_s(N, M, dtype)
 
     def forward(self, x, quant_mode: str = "round", generator=None):
         y = self.g_a(x)
@@ -99,12 +110,12 @@ class _HyperBase(nn.Module):
     """g_a / g_s and an EntropyBottleneck over z; subclasses build
     ``h_a`` / ``h_s`` and say how y is quantized given h_s(z_hat)."""
 
-    def __init__(self, N: int, M: int):
+    def __init__(self, N: int, M: int, dtype=None):
         super().__init__()
         self.N, self.M = N, M
         self.entropy_bottleneck = EntropyBottleneck(N)
-        self.g_a = _g_a(N, M)
-        self.g_s = _g_s(N, M)
+        self.g_a = _g_a(N, M, dtype)
+        self.g_s = _g_s(N, M, dtype)
 
     def _y_hat(self, y, hyper, quant):
         """(y_q, y_hat, scales) of ``y`` given the hyper decoder's output."""
@@ -131,8 +142,8 @@ class _HyperBase(nn.Module):
 
 
 class ScaleHyperprior(_HyperBase):
-    def __init__(self, N: int = 128, M: int = 192):
-        super().__init__(N, M)
+    def __init__(self, N: int = 128, M: int = 192, dtype=None):
+        super().__init__(N, M, dtype)
         self.h_a = nn.Sequential(
             conv(M, N, 3), nn.ReLU(), conv(N, N, 5, 2), nn.ReLU(),
             conv(N, N, 5, 2))
@@ -153,8 +164,8 @@ class ScaleHyperprior(_HyperBase):
 
 
 class MeanScaleHyperprior(_HyperBase):
-    def __init__(self, N: int = 128, M: int = 192):
-        super().__init__(N, M)
+    def __init__(self, N: int = 128, M: int = 192, dtype=None):
+        super().__init__(N, M, dtype)
         self.h_a = nn.Sequential(
             conv(M, N, 3), nn.LeakyReLU(), conv(N, N, 5, 2), nn.LeakyReLU(),
             conv(N, N, 5, 2))
@@ -173,10 +184,10 @@ class MeanScaleHyperprior(_HyperBase):
 
 
 class JointAutoregressiveHierarchicalPriors(MeanScaleHyperprior):
-    def __init__(self, N: int = 192, M: int = 192):
-        super().__init__(N, M)
+    def __init__(self, N: int = 192, M: int = 192, dtype=None):
+        super().__init__(N, M, dtype)
         self.context_prediction = MaskedConv2d(M, 2 * M, 5)
-        self.entropy_parameters = EntropyParams1x1(M * 4, M)
+        self.entropy_parameters = EntropyParams1x1(M * 4, M, dtype)
 
     def _y_hat(self, y, hyper, quant):
         # the context sees the means-unaware quantization, as the JAX
@@ -193,12 +204,13 @@ class ResidualBlockStrideGDN(nn.Module):
     """gen-1 ResidualBlockWithStride (DCVC/src/layers/layers.py:67-99):
     conv3x3 (stride) - LeakyReLU - conv3x3 - GDN, a strided 1x1 skip."""
 
-    def __init__(self, in_ch: int, out_ch: int, stride: int = 2):
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 2, dtype=None):
         super().__init__()
         self.conv1 = conv(in_ch, out_ch, 3, stride)
         self.conv2 = conv(out_ch, out_ch, 3)
         self.gdn = GDN(out_ch)
         self.downsample = conv(in_ch, out_ch, 1, stride)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         out = self.gdn(self.conv2(leaky_relu(self.conv1(x))))
@@ -209,12 +221,14 @@ class ResidualBlockUpsampleGDN(nn.Module):
     """gen-1 ResidualBlockUpsample (DCVC/src/layers/layers.py:101-128):
     subpel3x3 - LeakyReLU - conv3x3 - IGDN, a subpel3x3 skip."""
 
-    def __init__(self, in_ch: int, out_ch: int, upsample: int = 2):
+    def __init__(self, in_ch: int, out_ch: int, upsample: int = 2,
+                 dtype=None):
         super().__init__()
         self.subpel_conv = subpel_conv(in_ch, out_ch, upsample, 3)
         self.conv = conv(out_ch, out_ch, 3)
         self.igdn = GDN(out_ch, inverse=True)
         self.upsample = subpel_conv(in_ch, out_ch, upsample, 3)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         out = self.igdn(self.conv(leaky_relu(self.subpel_conv(x))))
@@ -222,20 +236,24 @@ class ResidualBlockUpsampleGDN(nn.Module):
 
 
 class Cheng2020Anchor(JointAutoregressiveHierarchicalPriors):
-    """M = N (waseda.py:41); the gen-1 GDN residual blocks."""
+    """M = N (waseda.py:41); the gen-1 GDN residual blocks. ``dtype``
+    reaches the blocks of g_a / g_s and the entropy parameters, not g_a's
+    and g_s's last layers nor h_a / h_s (``intra_zoo.py:345-352``)."""
 
-    def __init__(self, N: int = 192):
+    def __init__(self, N: int = 192, dtype=None):
         # its own transforms throughout: skip the parent's constructors
         nn.Module.__init__(self)
         self.N = self.M = N
         self.entropy_bottleneck = EntropyBottleneck(N)
         self.context_prediction = MaskedConv2d(N, 2 * N, 5)
-        self.entropy_parameters = EntropyParams1x1(N * 4, N)
+        self.entropy_parameters = EntropyParams1x1(N * 4, N, dtype)
         self.g_a = nn.Sequential(
-            ResidualBlockStrideGDN(3, N), ResidualBlock(N, N),
-            ResidualBlockStrideGDN(N, N), ResidualBlock(N, N),
-            ResidualBlockStrideGDN(N, N), ResidualBlock(N, N),
-            conv(N, N, 3, 2))
+            ResidualBlockStrideGDN(3, N, dtype=dtype),
+            ResidualBlock(N, N, dtype=dtype),
+            ResidualBlockStrideGDN(N, N, dtype=dtype),
+            ResidualBlock(N, N, dtype=dtype),
+            ResidualBlockStrideGDN(N, N, dtype=dtype),
+            ResidualBlock(N, N, dtype=dtype), conv(N, N, 3, 2))
         self.h_a = nn.Sequential(
             conv(N, N, 3), nn.LeakyReLU(), conv(N, N, 3), nn.LeakyReLU(),
             conv(N, N, 3, 2), nn.LeakyReLU(), conv(N, N, 3), nn.LeakyReLU(),
@@ -246,10 +264,13 @@ class Cheng2020Anchor(JointAutoregressiveHierarchicalPriors):
             subpel_conv(N * 3 // 2, N * 3 // 2, 2, 3), nn.LeakyReLU(),
             conv(N * 3 // 2, N * 2, 3))
         self.g_s = nn.Sequential(
-            ResidualBlock(N, N), ResidualBlockUpsampleGDN(N, N),
-            ResidualBlock(N, N), ResidualBlockUpsampleGDN(N, N),
-            ResidualBlock(N, N), ResidualBlockUpsampleGDN(N, N),
-            ResidualBlock(N, N), subpel_conv(N, 3, 2, 3))
+            ResidualBlock(N, N, dtype=dtype),
+            ResidualBlockUpsampleGDN(N, N, dtype=dtype),
+            ResidualBlock(N, N, dtype=dtype),
+            ResidualBlockUpsampleGDN(N, N, dtype=dtype),
+            ResidualBlock(N, N, dtype=dtype),
+            ResidualBlockUpsampleGDN(N, N, dtype=dtype),
+            ResidualBlock(N, N, dtype=dtype), subpel_conv(N, 3, 2, 3))
 
 
 # the registry of DCVC/src/zoo/image.py, at the JAX registry's widths
@@ -263,8 +284,9 @@ model_architectures = {
 
 
 def build_zoo(name: str, seed: int = 0, device=None, **kwargs) -> nn.Module:
-    """Zoo model ``name`` with seeded random weights on ``device`` (the
-    card unless ``device="cpu"``), in eval mode."""
+    """Zoo model ``name`` with seeded random weights (the same for any
+    ``dtype``) on ``device`` (the card unless ``device="cpu"``), in eval
+    mode; ``kwargs`` (``dtype`` among them) go to its constructor."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)

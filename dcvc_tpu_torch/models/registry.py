@@ -11,7 +11,9 @@ codes on ``EvcCodecRuntime`` and ``dmc_hem`` / ``canfvc_dmc`` on
 TCM and gen-1) on ``IntraZooRuntime``, ``dmc_tcm`` on ``TcmVideoRuntime``
 and ``dcvc_gen1`` on ``DcvcGen1Runtime``, as in the JAX registry.
 ``dtype=torch.bfloat16`` (the JAX modules' compute dtype) builds the names
-in ``DTYPE_MODELS``; every other name raises for a ``dtype``, f32 only.
+in ``DTYPE_MODELS``: every name but ``mbt2018``, whose masked convolution
+the JAX package runs on a bf16 latent with an f32 kernel and refuses
+(ROADMAP R4); it raises for a ``dtype``, f32 only.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ MODEL_NAMES = [
     "dmc_dc", "dmc_hem", "dmc_tcm", "dcvc_gen1", "canfvc_dmc",
 ]
 # the names whose modules take the dtype option
-DTYPE_MODELS = (*EVC_MODELS, "evc_scalable", "intra_dc", "dmc_dc")
+DTYPE_MODELS = tuple(n for n in MODEL_NAMES if n != "mbt2018")
 
 
 def build(name: str, seed: int = 0, device=None, state_dict=None, **kwargs):
@@ -54,7 +56,8 @@ def build(name: str, seed: int = 0, device=None, state_dict=None, **kwargs):
         raise KeyError(f"unknown model {name}")
     if kwargs.get("dtype") is not None and name not in DTYPE_MODELS:
         raise NotImplementedError(
-            f"{name}: the dtype option is not yet ported (f32 only)")
+            f"{name}: no dtype option, f32 only (ROADMAP R4: the JAX "
+            "package's MaskedConv2d refuses a bf16 y)")
     dev = resolve_device(device)
     if name in EVC_MODELS:
         module = build_evc(name.split("_")[1], seed=seed, device=dev, **kwargs)

@@ -265,7 +265,12 @@ class IntraZooRuntime(_RuntimeBase):
     one string per latent (``[y]`` or ``[y, z]``), z (the factorized
     model: y) through the EntropyBottleneck, y through the 64-level
     GaussianConditional, one-shot or, for the joint models (``mbt2018``,
-    ``cheng2020-anchor``), by host wavefronts, whose stream has one part.
+    ``cheng2020-anchor``), by host wavefronts. The joint models start
+    with one part, as in the JAX package; a caller may set
+    ``stream_part`` before ``update``, and the z and one-shot y strings
+    take it (the JAX package's bytes). The wavefront y string keeps one
+    part: its decoder meets the symbols one wavefront at a time, and the
+    JAX package's multi-part AR strings do not decode (ROADMAP R5).
     """
 
     _KINDS = {"FactorizedPrior": "factorized", "ScaleHyperprior": "scale",
@@ -274,17 +279,20 @@ class IntraZooRuntime(_RuntimeBase):
               "Cheng2020Anchor": "joint"}
 
     def __init__(self, module, ec_thread=False, stream_part=1, device=None):
-        super().__init__(module, False, stream_part, device)
-        self.kind = self._KINDS[type(module).__name__]
+        kind = self._KINDS[type(module).__name__]
+        super().__init__(module, False, 1 if kind == "joint" else stream_part,
+                         device)
+        self.kind = kind
         self.gaussian = GaussianConditional()
         self._table = self._medians = self._ar_nets = None
+        self._ar_coder = None
 
     def update(self, force: bool = False):
         if self.entropy_coder is not None and not force:
             return
         m = self.module
-        self.entropy_coder = EntropyCoder(
-            1 if self.kind == "joint" else self.stream_part)
+        self.entropy_coder = EntropyCoder(self.stream_part)
+        self._ar_coder = EntropyCoder(1) if self.kind == "joint" else None
         self.gaussian.update(force=True)
         self._table = build_bottleneck_tables(m.entropy_bottleneck)
         self._medians = (m.entropy_bottleneck.medians().detach().float()
@@ -342,9 +350,12 @@ class IntraZooRuntime(_RuntimeBase):
             y_hat = torch.round(y - means) + means
         else:
             hyper = _to_host_nhwc(m.hyper_from_z(z_hat))
+            coder = self._ar_coder
+            coder.reset()
             y_hat = self._from_host_nhwc(ar_encode(
                 y_np[0], hyper[0], self._ar_nets, self.gaussian, coder)[None])
-        return {"strings": [self._flush(), z_string],
+        coder.flush()
+        return {"strings": [coder.get_encoded_stream(), z_string],
                 "shape": tuple(z.shape[2:]), "x_hat": m.synthesize(y_hat)}
 
     @torch.no_grad()
@@ -360,6 +371,8 @@ class IntraZooRuntime(_RuntimeBase):
         coder.set_stream(z_string)
         z_hat = self._from_host_nhwc(bottleneck_decode(
             coder, (1, *shape_hw, m.N), self._medians, self._table))
+        if self.kind == "joint":
+            coder = self._ar_coder
         coder.set_stream(y_string)
         if self.kind == "scale":
             y_hat = self.gaussian.decode(
@@ -381,23 +394,27 @@ class DcvcGen1Runtime(_RuntimeBase):
 
     Parity: DCVC/src/models/DCVC_net.py:234-420 compress / decompress with
     four substreams (mv_z, mv_y, z, y). The AR loops run on the host by
-    wavefronts; their streams have one part (the decoder must meet the
-    symbols in the encoder's order).
+    wavefronts. The streams start with one part, as in the JAX package; a
+    caller may set ``stream_part`` before ``update``, and the z strings
+    take it (the JAX package's bytes). The wavefront mv_y and y strings
+    keep one part: their decoder meets the symbols one wavefront at a
+    time, and the JAX package's multi-part AR strings do not decode
+    (ROADMAP R5).
     """
 
     y_distribution = "laplace"
 
     def __init__(self, module, ec_thread=False, stream_part=1, device=None):
         super().__init__(module, ec_thread, 1, device)
-        self._ar_nets = None
+        self._ar_nets = self._ar_coder = None
 
     def _z_estimators(self):
         return ["bitEstimator_z", "bitEstimator_z_mv"]
 
     def update(self, force: bool = False):
-        self.stream_part = 1
         super().update(force)
         if self._ar_nets is None or force:
+            self._ar_coder = EntropyCoder(1)
             self._ar_nets = {w: extract_ar_nets(self.module, w)
                              for w in ("mv", "y")}
 
@@ -406,13 +423,16 @@ class DcvcGen1Runtime(_RuntimeBase):
         """Estimated-bits P-frame: ``{"recon_image", "bit", "bpp", ...}``."""
         return self.module(self._tensor(referframe), self._tensor(input_image))
 
-    def _ar(self, which: str, y, hyper: np.ndarray) -> torch.Tensor:
+    def _ar(self, which: str, y, hyper: np.ndarray) -> tuple:
         """AR-encode latent ``y`` (NCHW) given its NHWC hyper parameters
-        into a fresh stream; its y_hat as the decoder gets it."""
-        self.entropy_coder.reset()
+        into a fresh one-part stream: (its bytes, its y_hat as the decoder
+        gets it)."""
+        coder = self._ar_coder
+        coder.reset()
         y_hat = ar_encode(_to_host_nhwc(y)[0], hyper[0], self._ar_nets[which],
-                          self.gaussian, self.entropy_coder)
-        return self._from_host_nhwc(y_hat[None])
+                          self.gaussian, coder)
+        coder.flush()
+        return coder.get_encoded_stream(), self._from_host_nhwc(y_hat[None])
 
     @torch.no_grad()
     def compress(self, referframe, input_image):
@@ -422,17 +442,16 @@ class DcvcGen1Runtime(_RuntimeBase):
         self.entropy_coder.reset()
         self._encode_z("bitEstimator_z_mv", mv_z_hat)
         mv_z_string = self._flush()
-        mv_y_hat = self._ar("mv", mv_feature, _to_host_nhwc(params_mv))
-        mv_y_string = self._flush()
+        mv_y_string, mv_y_hat = self._ar("mv", mv_feature,
+                                         _to_host_nhwc(params_mv))
 
         context, temporal = m.motion_and_context(ref, mv_y_hat)
         y, z_hat, hyper = m.residual_analysis(x, context)
         self.entropy_coder.reset()
         self._encode_z("bitEstimator_z", z_hat)
         z_string = self._flush()
-        y_hat = self._ar("y", y, np.concatenate(
+        y_string, y_hat = self._ar("y", y, np.concatenate(
             [_to_host_nhwc(temporal), _to_host_nhwc(hyper)], axis=-1))
-        y_string = self._flush()
         return {"mv_z_string": mv_z_string, "mv_y_string": mv_y_string,
                 "z_string": z_string, "y_string": y_string,
                 "recon_image": m.synthesis(y_hat, context)}
@@ -452,20 +471,21 @@ class DcvcGen1Runtime(_RuntimeBase):
         coder.set_stream(mv_z_string)
         params_mv = m.mv_prior_decoder(
             self._decode_z("bitEstimator_z_mv", z_shape))
-        coder.set_stream(mv_y_string)
+        ar_coder = self._ar_coder
+        ar_coder.set_stream(mv_y_string)
         mv_y_hat = ar_decode((yh, yw, m.channel_mv),
                              _to_host_nhwc(params_mv)[0], self._ar_nets["mv"],
-                             self.gaussian, coder)
+                             self.gaussian, ar_coder)
         context, temporal = m.motion_and_context(
             ref, self._from_host_nhwc(mv_y_hat[None]))
 
         coder.set_stream(z_string)
         hyper = m.prior_decoder(self._decode_z("bitEstimator_z", z_shape))
-        coder.set_stream(y_string)
+        ar_coder.set_stream(y_string)
         y_hyper = np.concatenate([_to_host_nhwc(temporal),
                                   _to_host_nhwc(hyper)], axis=-1)
         y_hat = ar_decode((yh, yw, m.channel_M), y_hyper[0],
-                          self._ar_nets["y"], self.gaussian, coder)
+                          self._ar_nets["y"], self.gaussian, ar_coder)
         return {"recon_image": m.synthesis(
             self._from_host_nhwc(y_hat[None]), context)}
 

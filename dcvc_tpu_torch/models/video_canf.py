@@ -8,7 +8,8 @@ conditional ANF ladder (``use_affine=False``: additive, location-only
 flows; DCVC-HEM/src/layers/layers.py:131-335) and a DeQuantizationModule
 post-filter with 6 residual layers. The DPB carries no ``ref_feature``
 (the fork pins it to None, :655), so motion compensation always runs the
-I-adaptor path. It codes on ``HemVideoRuntime``. Child names are the
+I-adaptor path. It codes on ``HemVideoRuntime``. ``dtype`` reaches every
+network, as ``CANFVCDmc(dtype=...)`` gives it (``video_hem.py``). Child names are the
 reference's (``port_hem.convert_canf_dmc``):
 ``contextual_coder.analysis{i}.model``, ``.synthesis{i}.model_part1`` /
 ``model_part2`` and ``DQ``.
@@ -26,16 +27,16 @@ from .video_hem import (HemContextualDecoder, HemContextualEncoder,
 
 
 class _Analysis(nn.Module):
-    def __init__(self, N: int, M: int):
+    def __init__(self, N: int, M: int, dtype=None):
         super().__init__()
-        self.model = HemContextualEncoder(N, M)
+        self.model = HemContextualEncoder(N, M, dtype)
 
 
 class _Synthesis(nn.Module):
-    def __init__(self, N: int, M: int):
+    def __init__(self, N: int, M: int, dtype=None):
         super().__init__()
-        self.model_part1 = HemContextualDecoder(N, M)
-        self.model_part2 = HemReconGeneration(N)
+        self.model_part1 = HemContextualDecoder(N, M, dtype)
+        self.model_part2 = HemReconGeneration(N, dtype)
 
     def forward(self, code, contexts):
         c1, c2, c3 = contexts
@@ -48,12 +49,14 @@ class CanfMainCoder(nn.Module):
     :553-583)."""
 
     def __init__(self, num_layers: int = 2, channel_N: int = 64,
-                 channel_M: int = 96):
+                 channel_M: int = 96, dtype=None):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
-            setattr(self, f"analysis{i}", _Analysis(channel_N, channel_M))
-            setattr(self, f"synthesis{i}", _Synthesis(channel_N, channel_M))
+            setattr(self, f"analysis{i}",
+                    _Analysis(channel_N, channel_M, dtype))
+            setattr(self, f"synthesis{i}",
+                    _Synthesis(channel_N, channel_M, dtype))
 
     def _analyse(self, i, x, contexts):
         return getattr(self, f"analysis{i}").model(x, *contexts)
@@ -90,19 +93,27 @@ class CANFVCDmc(HemTrunk):
     """The HEM DMC with CANF contextual coding and the DQ post-filter."""
 
     def __init__(self, anchor_num: int = 4, channel_mv: int = 64,
-                 channel_N: int = 64, channel_M: int = 96):
-        super().__init__(anchor_num, channel_mv, channel_N, channel_M, None)
-        self.contextual_coder = CanfMainCoder(2, channel_N, channel_M)
-        self.DQ = DeQuantizationModule(3, 3, 64, 6)
+                 channel_N: int = 64, channel_M: int = 96, dtype=None):
+        super().__init__(anchor_num, channel_mv, channel_N, channel_M, None,
+                         dtype)
+        self.contextual_coder = CanfMainCoder(2, channel_N, channel_M, dtype)
+        self.DQ = DeQuantizationModule(3, 3, 64, 6, dtype)
 
     def _analysis(self, x, contexts):
         x2, y = self.contextual_coder.encode(x, contexts)
         return y, x2
 
     def _synthesis(self, y_hat, contexts, state=None):
+        # the ladder decodes from zeros of context1's dtype widened to f32
+        # on both sides: the f32 frame's dtype the encoder sees. The JAX
+        # package's decoder starts from zeros of context1's own dtype, so
+        # under bf16 its DPB is bf16 where its encoder's is f32, and the
+        # next P-frame's symbols desynchronise (ROADMAP R6); one rule for
+        # both sides gives the decoder the encoder's DPB
         c1 = contexts[0]
         x0 = torch.zeros((c1.shape[0], 3, c1.shape[2], c1.shape[3]),
-                         dtype=c1.dtype, device=c1.device)
+                         dtype=torch.promote_types(c1.dtype, torch.float32),
+                         device=c1.device)
         x_hat = self.contextual_coder.decode(x0, contexts, y_hat)
         x_hat = torch.clamp(self.DQ(x_hat), 0.0, 1.0)
         extra = {}

@@ -11,6 +11,14 @@ masks' buffers are dropped.
 The estimated-bits forward runs the masked convs on the device; real
 coding runs the AR loop on the host by wavefronts (``ar_coding.py``), so
 the runtime calls the device halves below around it.
+
+``dtype`` (None = f32, or ``torch.bfloat16``) reaches only the layers the
+JAX constructor gives it to (``dcvc_tpu/models/video_dcvc.py:121-160``):
+the flow net, the ReLU and LeakyReLU residual blocks and the entropy
+parameter nets. Every other convolution, GDN and the masked convolutions
+stay f32 (a bf16 input is widened first), so the contexts, the latents and
+the recon come out f32. The host AR loop is float64 on the f32 weights
+whatever the dtype.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..entropy import bits
 from ..entropy.bit_estimator import BitEstimator
-from ..layers.blocks import conv, deconv, subpel_conv
+from ..layers.blocks import (LeakyReLU, conv, deconv, set_compute_dtype,
+                             subpel_conv)
 from ..layers.gdn import GDN
 from ..ops.warp import resolve_warp_fn
 from . import priors
@@ -34,10 +43,10 @@ class Gen1ResBlock(nn.Module):
     """Pre-activation ReLU residual block (DCVC/src/models/video_net.py:
     159-187), in = out channels."""
 
-    def __init__(self, channel: int, kernel: int = 3):
+    def __init__(self, channel: int, kernel: int = 3, dtype=None):
         super().__init__()
-        self.conv1 = conv(channel, channel, kernel)
-        self.conv2 = conv(channel, channel, kernel)
+        self.conv1 = conv(channel, channel, kernel, dtype=dtype)
+        self.conv2 = conv(channel, channel, kernel, dtype=dtype)
 
     def forward(self, x):
         return x + self.conv2(torch.relu(self.conv1(torch.relu(x))))
@@ -46,10 +55,11 @@ class Gen1ResBlock(nn.Module):
 class ResBlockLeaky01(nn.Module):
     """ResBlock_LeakyReLU_0_Point_1: keys ``conv.0`` / ``conv.2``."""
 
-    def __init__(self, channel: int):
+    def __init__(self, channel: int, dtype=None):
         super().__init__()
-        self.conv = nn.Sequential(conv(channel, channel, 3), nn.LeakyReLU(0.1),
-                                  conv(channel, channel, 3), nn.LeakyReLU(0.1))
+        self.conv = set_compute_dtype(nn.Sequential(
+            conv(channel, channel, 3), LeakyReLU(0.1),
+            conv(channel, channel, 3), LeakyReLU(0.1)), dtype)
 
     def forward(self, x):
         return x + self.conv(x)
@@ -69,13 +79,14 @@ class MaskedConv2d(nn.Conv2d):
                         padding=self.padding)
 
 
-def EntropyParams1x1(in_ch: int, channel: int) -> nn.Sequential:
+def EntropyParams1x1(in_ch: int, channel: int, dtype=None) -> nn.Sequential:
     """Three 1x1 convs with LeakyReLU between (DCVC_net.py:147-169):
     in -> 10M/3 -> 8M/3 -> 2M."""
     M = channel
-    return nn.Sequential(conv(in_ch, M * 10 // 3, 1), nn.LeakyReLU(),
-                         conv(M * 10 // 3, M * 8 // 3, 1), nn.LeakyReLU(),
-                         conv(M * 8 // 3, M * 2, 1))
+    return set_compute_dtype(nn.Sequential(
+        conv(in_ch, M * 10 // 3, 1), LeakyReLU(),
+        conv(M * 10 // 3, M * 8 // 3, 1), LeakyReLU(),
+        conv(M * 8 // 3, M * 2, 1)), dtype)
 
 
 def _gdn_stack(convs, gdns):
@@ -93,17 +104,20 @@ class DCVCNet(nn.Module):
     launches K1 on CUDA tensors (``ops/warp.resolve_warp_fn``)."""
 
     def __init__(self, channel_mv: int = 128, channel_N: int = 64,
-                 channel_M: int = 96, mc_warp_mode: str | None = None):
+                 channel_M: int = 96, mc_warp_mode: str | None = None,
+                 dtype=None):
         super().__init__()
         mv, N, M = channel_mv, channel_N, channel_M
         self.channel_mv, self.channel_N, self.channel_M = mv, N, M
         self.mc_warp_mode = mc_warp_mode
-        self.opticFlow = MESpynet()
+        self.opticFlow = MESpynet(dtype=dtype)
         self.bitEstimator_z = BitEstimator(N)
         self.bitEstimator_z_mv = BitEstimator(N)
 
-        self.feature_extract = nn.Sequential(conv(3, N, 3), Gen1ResBlock(N))
-        self.context_refine = nn.Sequential(Gen1ResBlock(N), conv(N, N, 3))
+        self.feature_extract = nn.Sequential(conv(3, N, 3),
+                                             Gen1ResBlock(N, dtype=dtype))
+        self.context_refine = nn.Sequential(Gen1ResBlock(N, dtype=dtype),
+                                            conv(N, N, 3))
 
         self.mvEncoder = _gdn_stack(
             [conv(2, mv, 3, 2)] + [conv(mv, mv, 3, 2) for _ in range(3)],
@@ -118,16 +132,18 @@ class DCVCNet(nn.Module):
                                              conv(64, 2, 3))
 
         self.contextualEncoder = nn.Sequential(
-            conv(N + 3, N, 5, 2), GDN(N), ResBlockLeaky01(N),
-            conv(N, N, 5, 2), GDN(N), ResBlockLeaky01(N),
+            conv(N + 3, N, 5, 2), GDN(N), ResBlockLeaky01(N, dtype),
+            conv(N, N, 5, 2), GDN(N), ResBlockLeaky01(N, dtype),
             conv(N, N, 5, 2), GDN(N), conv(N, M, 5, 2))
         self.contextualDecoder_part1 = nn.Sequential(
             subpel_conv(M, N, 2, 3), GDN(N, inverse=True),
-            subpel_conv(N, N, 2, 3), GDN(N, inverse=True), ResBlockLeaky01(N),
-            subpel_conv(N, N, 2, 3), GDN(N, inverse=True), ResBlockLeaky01(N),
-            subpel_conv(N, N, 2, 3))
+            subpel_conv(N, N, 2, 3), GDN(N, inverse=True),
+            ResBlockLeaky01(N, dtype),
+            subpel_conv(N, N, 2, 3), GDN(N, inverse=True),
+            ResBlockLeaky01(N, dtype), subpel_conv(N, N, 2, 3))
         self.contextualDecoder_part2 = nn.Sequential(
-            conv(N * 2, N, 3), Gen1ResBlock(N), Gen1ResBlock(N), conv(N, 3, 3))
+            conv(N * 2, N, 3), Gen1ResBlock(N, dtype=dtype),
+            Gen1ResBlock(N, dtype=dtype), conv(N, 3, 3))
 
         self.priorEncoder = nn.Sequential(
             conv(M, N, 3), nn.LeakyReLU(), conv(N, N, 5, 2), nn.LeakyReLU(),
@@ -147,8 +163,8 @@ class DCVCNet(nn.Module):
 
         self.auto_regressive = MaskedConv2d(M, 2 * M, 5)
         self.auto_regressive_mv = MaskedConv2d(mv, 2 * mv, 5)
-        self.entropy_parameters = EntropyParams1x1(M * 4, M)
-        self.entropy_parameters_mv = EntropyParams1x1(mv * 4, mv)
+        self.entropy_parameters = EntropyParams1x1(M * 4, M, dtype)
+        self.entropy_parameters_mv = EntropyParams1x1(mv * 4, mv, dtype)
 
     # ---- sub-nets ----
 
@@ -259,8 +275,9 @@ def extract_ar_nets(module: DCVCNet, which: str) -> ArNets:
 
 
 def build_dcvc_gen1(seed: int = 0, device=None, **kwargs) -> DCVCNet:
-    """DCVCNet with seeded random weights on ``device`` (the card unless
-    ``device="cpu"``), in eval mode; ``kwargs`` go to ``DCVCNet``."""
+    """DCVCNet with seeded random weights (the same for any ``dtype``) on
+    ``device`` (the card unless ``device="cpu"``), in eval mode; ``kwargs``
+    (``dtype`` among them) go to ``DCVCNet``."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)

@@ -16,6 +16,12 @@ share (the fork's ``CANFVC_DMC`` subclasses ``DMC``): the flow, the mv
 codec, the feature pyramid and context fusion, the hyper codecs, both
 priors and the estimated-bits / compress / decode passes. A subclass codes
 the current frame given the contexts: ``_analysis`` and ``_synthesis``.
+
+``dtype`` (None = f32, or ``torch.bfloat16``) is the JAX modules' compute
+dtype, given to every network as ``DMCHem(dtype=...)`` /
+``CANFVCDmc(dtype=...)`` give it (the bit estimators and the q parameters
+take none); parameters stay f32 and ``DMCHem``'s DPB dtypes are a fixed
+point of the P-frame step (``tests/test_dtype_consistency.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch.nn as nn
 from ..device import resolve_device
 from ..entropy import bits
 from ..entropy.bit_estimator import BitEstimator
-from ..layers.blocks import ResBlock, conv, subpel_conv
+from ..layers.blocks import LeakyReLU, ResBlock, conv, subpel_conv
 from ..ops.math import lower_bound
 from ..ops.warp import bilinear_down2, resolve_warp_fn
 from . import priors
@@ -36,17 +42,17 @@ from .video_net import (FeatureExtractor, HyperEnc, HyperEncReduced, MESpynet,
 
 
 class HemContextualEncoder(nn.Module):
-    def __init__(self, channel_N: int = 64, channel_M: int = 96):
+    def __init__(self, channel_N: int = 64, channel_M: int = 96, dtype=None):
         super().__init__()
         N, M = channel_N, channel_M
-        self.conv1 = conv(N + 3, N, 3, 2)
+        self.conv1 = conv(N + 3, N, 3, 2, dtype=dtype)
         self.res1 = ResBlock(N * 2, slope=0.1, end_with_relu=True,
-                             bottleneck=True)
-        self.conv2 = conv(N * 2, N, 3, 2)
+                             bottleneck=True, dtype=dtype)
+        self.conv2 = conv(N * 2, N, 3, 2, dtype=dtype)
         self.res2 = ResBlock(N * 2, slope=0.1, end_with_relu=True,
-                             bottleneck=True)
-        self.conv3 = conv(N * 2, N, 3, 2)
-        self.conv4 = conv(N, M, 3, 2)
+                             bottleneck=True, dtype=dtype)
+        self.conv3 = conv(N * 2, N, 3, 2, dtype=dtype)
+        self.conv4 = conv(N, M, 3, 2, dtype=dtype)
 
     def forward(self, x, context1, context2, context3):
         f = self.conv1(torch.cat([x, context1], dim=1))
@@ -56,17 +62,17 @@ class HemContextualEncoder(nn.Module):
 
 
 class HemContextualDecoder(nn.Module):
-    def __init__(self, channel_N: int = 64, channel_M: int = 96):
+    def __init__(self, channel_N: int = 64, channel_M: int = 96, dtype=None):
         super().__init__()
         N, M = channel_N, channel_M
-        self.up1 = subpel_conv(M, N, 2, 3)
-        self.up2 = subpel_conv(N, N, 2, 3)
+        self.up1 = subpel_conv(M, N, 2, 3, dtype=dtype)
+        self.up2 = subpel_conv(N, N, 2, 3, dtype=dtype)
         self.res1 = ResBlock(N * 2, slope=0.1, end_with_relu=True,
-                             bottleneck=True)
-        self.up3 = subpel_conv(N * 2, N, 2, 3)
+                             bottleneck=True, dtype=dtype)
+        self.up3 = subpel_conv(N * 2, N, 2, 3, dtype=dtype)
         self.res2 = ResBlock(N * 2, slope=0.1, end_with_relu=True,
-                             bottleneck=True)
-        self.up4 = subpel_conv(N * 2, 32, 2, 3)
+                             bottleneck=True, dtype=dtype)
+        self.up4 = subpel_conv(N * 2, 32, 2, 3, dtype=dtype)
 
     def forward(self, x, context2, context3):
         f = self.up2(self.up1(x))
@@ -76,12 +82,12 @@ class HemContextualDecoder(nn.Module):
 
 
 class HemReconGeneration(nn.Module):
-    def __init__(self, channel: int = 64):
+    def __init__(self, channel: int = 64, dtype=None):
         super().__init__()
-        self.first_conv = conv(32 + channel, channel, 3)
-        self.unet_1 = HemUNet(channel, channel)
-        self.unet_2 = HemUNet(channel, channel)
-        self.recon_conv = conv(channel, 3, 3)
+        self.first_conv = conv(32 + channel, channel, 3, dtype=dtype)
+        self.unet_1 = HemUNet(channel, channel, dtype)
+        self.unet_2 = HemUNet(channel, channel, dtype)
+        self.recon_conv = conv(channel, 3, 3, dtype=dtype)
 
     def forward(self, ctx, res):
         """``ctx``: the contextual decoder's output; ``res``: context1."""
@@ -95,28 +101,30 @@ class HemTrunk(nn.Module):
     coder of the current frame (``_analysis`` / ``_synthesis``)."""
 
     def __init__(self, anchor_num: int, channel_mv: int, channel_N: int,
-                 channel_M: int, mc_warp_mode: str | None):
+                 channel_M: int, mc_warp_mode: str | None, dtype=None):
         super().__init__()
         mv, N, M = channel_mv, channel_N, channel_M
         self.channel_mv, self.channel_N, self.channel_M = mv, N, M
         self.mc_warp_mode = mc_warp_mode
-        self.optic_flow = MESpynet()
-        self.mv_encoder = HemEncoder(2, mv)
-        self.mv_decoder = HemDecoder(mv, 2)
-        self.mv_hyper_prior_encoder = HyperEnc(mv, N)
-        self.mv_hyper_prior_decoder = HemHyperDec(N, mv)
-        self.mv_y_prior_fusion = Conv3Stack(mv * 3, (mv * 3, mv * 3, mv * 3))
-        self.mv_y_spatial_prior = Conv3Stack(mv * 4, (mv * 3, mv * 3, mv * 2))
-        self.feature_adaptor_I = conv(3, N, 3)
-        self.feature_extractor = FeatureExtractor((N, N, N))
-        self.context_fusion_net = MultiScaleContextFusion((N, N, N))
-        self.contextual_hyper_prior_encoder = HyperEncReduced(M, N)
-        self.contextual_hyper_prior_decoder = HemHyperDec(N, M)
+        self.optic_flow = MESpynet(dtype=dtype)
+        self.mv_encoder = HemEncoder(2, mv, dtype)
+        self.mv_decoder = HemDecoder(mv, 2, dtype)
+        self.mv_hyper_prior_encoder = HyperEnc(mv, N, dtype)
+        self.mv_hyper_prior_decoder = HemHyperDec(N, mv, dtype)
+        self.mv_y_prior_fusion = Conv3Stack(mv * 3, (mv * 3, mv * 3, mv * 3),
+                                            dtype)
+        self.mv_y_spatial_prior = Conv3Stack(mv * 4, (mv * 3, mv * 3, mv * 2),
+                                             dtype)
+        self.feature_adaptor_I = conv(3, N, 3, dtype=dtype)
+        self.feature_extractor = FeatureExtractor((N, N, N), dtype)
+        self.context_fusion_net = MultiScaleContextFusion((N, N, N), dtype)
+        self.contextual_hyper_prior_encoder = HyperEncReduced(M, N, dtype)
+        self.contextual_hyper_prior_decoder = HemHyperDec(N, M, dtype)
         self.temporal_prior_encoder = nn.Sequential(
-            conv(N, M * 3 // 2, 3, 2), nn.LeakyReLU(0.1),
-            conv(M * 3 // 2, M * 2, 3, 2))
-        self.y_prior_fusion = Conv3Stack(M * 5, (M * 4, M * 3, M * 3))
-        self.y_spatial_prior = Conv3Stack(M * 4, (M * 3, M * 3, M * 2))
+            conv(N, M * 3 // 2, 3, 2, dtype=dtype), LeakyReLU(0.1),
+            conv(M * 3 // 2, M * 2, 3, 2, dtype=dtype))
+        self.y_prior_fusion = Conv3Stack(M * 5, (M * 4, M * 3, M * 3), dtype)
+        self.y_spatial_prior = Conv3Stack(M * 4, (M * 3, M * 3, M * 2), dtype)
         self.bit_estimator_z = BitEstimator(N)
         self.bit_estimator_z_mv = BitEstimator(N)
         self.mv_y_q_basic = nn.Parameter(torch.ones(1, mv, 1, 1))
@@ -318,14 +326,14 @@ class DMCHem(HemTrunk):
 
     def __init__(self, anchor_num: int = 4, channel_mv: int = 64,
                  channel_N: int = 64, channel_M: int = 96,
-                 mc_warp_mode: str | None = None):
+                 mc_warp_mode: str | None = None, dtype=None):
         super().__init__(anchor_num, channel_mv, channel_N, channel_M,
-                         mc_warp_mode)
+                         mc_warp_mode, dtype)
         N, M = channel_N, channel_M
-        self.feature_adaptor_P = conv(N, N, 1)
-        self.contextual_encoder = HemContextualEncoder(N, M)
-        self.contextual_decoder = HemContextualDecoder(N, M)
-        self.recon_generation_net = HemReconGeneration(N)
+        self.feature_adaptor_P = conv(N, N, 1, dtype=dtype)
+        self.contextual_encoder = HemContextualEncoder(N, M, dtype)
+        self.contextual_decoder = HemContextualDecoder(N, M, dtype)
+        self.recon_generation_net = HemReconGeneration(N, dtype)
 
     def _ref_feature(self, dpb):
         if dpb["ref_feature"] is None:
@@ -343,8 +351,9 @@ class DMCHem(HemTrunk):
 
 
 def build_dmc_hem(seed: int = 0, device=None, **kwargs) -> DMCHem:
-    """DMCHem with seeded random weights on ``device`` (the card unless
-    ``device="cpu"``), in eval mode; ``kwargs`` go to ``DMCHem``."""
+    """DMCHem with seeded random weights (the same for any ``dtype``) on
+    ``device`` (the card unless ``device="cpu"``), in eval mode; ``kwargs``
+    (``dtype`` among them) go to ``DMCHem``."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)

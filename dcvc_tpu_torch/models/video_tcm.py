@@ -9,6 +9,12 @@ coding (scales / means from the entropy-parameter net), the DPB
 the reference's (``dcvc_tpu/utils/port_tcm.py``). The feature pyramid and
 context fusion are DC's (``video_net.FeatureExtractor`` /
 ``MultiScaleContextFusion`` at one width: same layers, same keys).
+
+``dtype`` (None = f32, or ``torch.bfloat16``) is the compute dtype of
+``layers/blocks.py``, given to every convolution as ``DMCTcm(dtype=...)``
+gives it; its GDNs take none (their bf16 input gives f32, as in the JAX
+package). Parameters stay f32; the DPB's dtypes are a fixed point of the
+P-frame step.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ import torch.nn as nn
 from ..device import resolve_device
 from ..entropy import bits
 from ..entropy.bit_estimator import BitEstimator
-from ..layers.blocks import ResBlock, conv, deconv, subpel_conv
+from ..layers.blocks import (LeakyReLU, ResBlock, conv, deconv,
+                             set_compute_dtype, subpel_conv)
 from ..layers.gdn import GDN
 from ..ops.warp import bilinear_down2, resolve_warp_fn
 from . import priors
@@ -36,26 +43,28 @@ def _res_bottleneck(channel: int) -> ResBlock:
 class TcmMvEncoder(nn.Sequential):
     """(conv-s2, GDN, ResBlock, LeakyReLU(0.1)) x 3, conv-s2."""
 
-    def __init__(self, channel_mv: int = 128):
+    def __init__(self, channel_mv: int = 128, dtype=None):
         ch = channel_mv
         layers = []
         for i in range(3):
             layers += [conv(2 if i == 0 else ch, ch, 3, 2), GDN(ch),
-                       ResBlock(ch), nn.LeakyReLU(0.1)]
+                       ResBlock(ch), LeakyReLU(0.1)]
         super().__init__(*layers, conv(ch, ch, 3, 2))
+        set_compute_dtype(self, dtype)
 
 
 class TcmMvDecoder(nn.Sequential):
-    def __init__(self, channel_mv: int = 128):
+    def __init__(self, channel_mv: int = 128, dtype=None):
         ch = channel_mv
         super().__init__(
-            deconv(ch, ch, 3, 2), nn.LeakyReLU(0.1), ResBlock(ch),
+            deconv(ch, ch, 3, 2), LeakyReLU(0.1), ResBlock(ch),
             GDN(ch, inverse=True), deconv(ch, ch, 3, 2), GDN(ch, inverse=True),
             deconv(ch, ch, 3, 2), GDN(ch, inverse=True), deconv(ch, 2, 3, 2))
+        set_compute_dtype(self, dtype)
 
 
 class TcmContextualEncoder(nn.Module):
-    def __init__(self, channel_N: int = 64, channel_M: int = 96):
+    def __init__(self, channel_N: int = 64, channel_M: int = 96, dtype=None):
         super().__init__()
         N, M = channel_N, channel_M
         self.conv1 = conv(N + 3, N, 3, 2)
@@ -67,6 +76,7 @@ class TcmContextualEncoder(nn.Module):
         self.conv3 = conv(N * 2, N, 3, 2)
         self.gdn3 = GDN(N)
         self.conv4 = conv(N, M, 3, 2)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x, context1, context2, context3):
         f = self.gdn1(self.conv1(torch.cat([x, context1], dim=1)))
@@ -78,7 +88,7 @@ class TcmContextualEncoder(nn.Module):
 
 
 class TcmContextualDecoder(nn.Module):
-    def __init__(self, channel_N: int = 64, channel_M: int = 96):
+    def __init__(self, channel_N: int = 64, channel_M: int = 96, dtype=None):
         super().__init__()
         N, M = channel_N, channel_M
         self.up1 = subpel_conv(M, N, 2, 3)
@@ -90,6 +100,7 @@ class TcmContextualDecoder(nn.Module):
         self.gdn3 = GDN(N, inverse=True)
         self.res2 = _res_bottleneck(N * 2)
         self.up4 = subpel_conv(N * 2, 32, 2, 3)
+        set_compute_dtype(self, dtype)
 
     def forward(self, y_hat, context2, context3):
         f = self.gdn2(self.up2(self.gdn1(self.up1(y_hat))))
@@ -100,7 +111,7 @@ class TcmContextualDecoder(nn.Module):
 
 
 class TcmTemporalPriorEncoder(nn.Module):
-    def __init__(self, channel_N: int = 64, channel_M: int = 96):
+    def __init__(self, channel_N: int = 64, channel_M: int = 96, dtype=None):
         super().__init__()
         N, M = channel_N, channel_M
         self.conv1 = conv(N, N, 3, 2)
@@ -110,6 +121,7 @@ class TcmTemporalPriorEncoder(nn.Module):
         self.conv3 = conv(M + N, M * 3 // 2, 3, 2)
         self.gdn3 = GDN(M * 3 // 2)
         self.conv4 = conv(M * 3 // 2, M * 2, 3, 2)
+        set_compute_dtype(self, dtype)
 
     def forward(self, context1, context2, context3):
         f = self.gdn1(self.conv1(context1))
@@ -121,11 +133,12 @@ class TcmTemporalPriorEncoder(nn.Module):
 class TcmReconGeneration(nn.Module):
     """``feature_conv``: conv + 2 ResBlocks (keys ``.0`` ``.1`` ``.2``)."""
 
-    def __init__(self, channel: int = 64):
+    def __init__(self, channel: int = 64, dtype=None):
         super().__init__()
         self.feature_conv = nn.Sequential(conv(32 + channel, channel, 3),
                                           ResBlock(channel), ResBlock(channel))
         self.recon_conv = conv(channel, 3, 3)
+        set_compute_dtype(self, dtype)
 
     def forward(self, ctx, res):
         """``ctx``: the contextual decoder's output; ``res``: context1."""
@@ -133,23 +146,24 @@ class TcmReconGeneration(nn.Module):
         return feature, self.recon_conv(feature)
 
 
-def _hyper_enc(in_ch: int, N: int) -> nn.Sequential:
-    return nn.Sequential(conv(in_ch, N, 3), nn.LeakyReLU(), conv(N, N, 3, 2),
-                         nn.LeakyReLU(), conv(N, N, 3, 2))
+def _hyper_enc(in_ch: int, N: int, dtype=None) -> nn.Sequential:
+    return set_compute_dtype(nn.Sequential(
+        conv(in_ch, N, 3), LeakyReLU(), conv(N, N, 3, 2), LeakyReLU(),
+        conv(N, N, 3, 2)), dtype)
 
 
-def _hyper_dec(N: int, mid: int, out: int) -> nn.Sequential:
+def _hyper_dec(N: int, mid: int, out: int, dtype=None) -> nn.Sequential:
     """z -> 2 * out prior features through transposed convs."""
-    return nn.Sequential(
-        deconv(N, mid, 3, 2), nn.LeakyReLU(), deconv(mid, mid * 3 // 2, 3, 2),
-        nn.LeakyReLU(), deconv(mid * 3 // 2, out * 2, 3, 1))
+    return set_compute_dtype(nn.Sequential(
+        deconv(N, mid, 3, 2), LeakyReLU(), deconv(mid, mid * 3 // 2, 3, 2),
+        LeakyReLU(), deconv(mid * 3 // 2, out * 2, 3, 1)), dtype)
 
 
-def _entropy_parameter(M: int) -> nn.Sequential:
-    return nn.Sequential(
-        conv(M * 4, M * 10 // 3, 3), nn.LeakyReLU(),
-        conv(M * 10 // 3, M * 8 // 3, 3), nn.LeakyReLU(),
-        conv(M * 8 // 3, M * 2, 3))
+def _entropy_parameter(M: int, dtype=None) -> nn.Sequential:
+    return set_compute_dtype(nn.Sequential(
+        conv(M * 4, M * 10 // 3, 3), LeakyReLU(),
+        conv(M * 10 // 3, M * 8 // 3, 3), LeakyReLU(),
+        conv(M * 8 // 3, M * 2, 3)), dtype)
 
 
 class DMCTcm(nn.Module):
@@ -157,29 +171,30 @@ class DMCTcm(nn.Module):
     "block:..." launches K1 on CUDA tensors (``ops/warp.resolve_warp_fn``)."""
 
     def __init__(self, channel_mv: int = 128, channel_N: int = 64,
-                 channel_M: int = 96, mc_warp_mode: str | None = None):
+                 channel_M: int = 96, mc_warp_mode: str | None = None,
+                 dtype=None):
         super().__init__()
         mv, N, M = channel_mv, channel_N, channel_M
         self.channel_mv, self.channel_N, self.channel_M = mv, N, M
         self.mc_warp_mode = mc_warp_mode
-        self.optic_flow = MESpynet()
-        self.mv_encoder = TcmMvEncoder(mv)
-        self.mv_prior_encoder = _hyper_enc(mv, N)
-        self.mv_prior_decoder = _hyper_dec(N, mv, mv)
-        self.mv_decoder = TcmMvDecoder(mv)
+        self.optic_flow = MESpynet(dtype=dtype)
+        self.mv_encoder = TcmMvEncoder(mv, dtype)
+        self.mv_prior_encoder = _hyper_enc(mv, N, dtype)
+        self.mv_prior_decoder = _hyper_dec(N, mv, mv, dtype)
+        self.mv_decoder = TcmMvDecoder(mv, dtype)
 
-        self.feature_adaptor_I = conv(3, N, 3)
-        self.feature_adaptor_P = conv(N, N, 1)
-        self.feature_extractor = FeatureExtractor((N, N, N))
-        self.context_fusion_net = MultiScaleContextFusion((N, N, N))
+        self.feature_adaptor_I = conv(3, N, 3, dtype=dtype)
+        self.feature_adaptor_P = conv(N, N, 1, dtype=dtype)
+        self.feature_extractor = FeatureExtractor((N, N, N), dtype)
+        self.context_fusion_net = MultiScaleContextFusion((N, N, N), dtype)
 
-        self.contextual_encoder = TcmContextualEncoder(N, M)
-        self.contextual_hyper_prior_encoder = _hyper_enc(M, N)
-        self.contextual_hyper_prior_decoder = _hyper_dec(N, M, M)
-        self.temporal_prior_encoder = TcmTemporalPriorEncoder(N, M)
-        self.contextual_entropy_parameter = _entropy_parameter(M)
-        self.contextual_decoder = TcmContextualDecoder(N, M)
-        self.recon_generation_net = TcmReconGeneration(N)
+        self.contextual_encoder = TcmContextualEncoder(N, M, dtype)
+        self.contextual_hyper_prior_encoder = _hyper_enc(M, N, dtype)
+        self.contextual_hyper_prior_decoder = _hyper_dec(N, M, M, dtype)
+        self.temporal_prior_encoder = TcmTemporalPriorEncoder(N, M, dtype)
+        self.contextual_entropy_parameter = _entropy_parameter(M, dtype)
+        self.contextual_decoder = TcmContextualDecoder(N, M, dtype)
+        self.recon_generation_net = TcmReconGeneration(N, dtype)
 
         self.bit_estimator_z = BitEstimator(N)
         self.bit_estimator_z_mv = BitEstimator(N)
@@ -285,8 +300,9 @@ class DMCTcm(nn.Module):
 
 
 def build_dmc_tcm(seed: int = 0, device=None, **kwargs) -> DMCTcm:
-    """DMCTcm with seeded random weights on ``device`` (the card unless
-    ``device="cpu"``), in eval mode; ``kwargs`` go to ``DMCTcm``."""
+    """DMCTcm with seeded random weights (the same for any ``dtype``) on
+    ``device`` (the card unless ``device="cpu"``), in eval mode; ``kwargs``
+    (``dtype`` among them) go to ``DMCTcm``."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)

@@ -5,7 +5,8 @@ init is the expensive part). DMC runs at its fixed full widths on 64x64
 frames, two chained P-frames, with od_warp_mode "block:4,4,64,128,median4"
 on both sides; the golden case (tests/golden/dc_p.bin) uses the exact warp
 as the golden generator does. Weights come from the golden init
-(jax.jit(DMC().init), PRNGKey(0)) through utils/convert.py.
+(``DMC().init`` at PRNGKey(0), replayed by ``tests/_flax_init.py`` with no
+init compile) through utils/convert.py.
 
 Tolerances: x_hat and DPB tensors atol 1e-4 (f32 convolutions in another
 summation order, compounded over a deep network and two frames); bits
@@ -30,6 +31,7 @@ from dcvc_tpu_torch.models.runtime import DmcRuntime
 from dcvc_tpu_torch.models.video_dc import DMC, build_dmc
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.convert import dmc_from_jax
+from _flax_init import init_params
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -64,8 +66,7 @@ def dmc():
     jm = JDMC(od_warp_mode=BLOCK)
     x0 = jnp.zeros((1, 64, 64, 3))
     qs = {k: jnp.ones(()) for k in ("mv_enc", "mv_dec", "y_enc", "y_dec")}
-    params = jax.jit(JDMC().init, static_argnums=(4,))(
-        jax.random.PRNGKey(0), x0, _dpb0(x0), qs, 0)
+    params = init_params(JDMC(), x0, _dpb0(x0), qs, 0)
     jrt = JDmcRuntime(jm, params)
     jrt.update(force=True)
     sd = dmc_from_jax(jax.tree_util.tree_map(np.asarray, params))

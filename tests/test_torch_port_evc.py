@@ -5,8 +5,8 @@ Weights are seeded *port* weights carried to JAX with
 ``dcvc_tpu/utils/port_dc.py`` (no JAX model init), except for the golden
 case: the committed ``evc`` pin was coded with the JAX init at
 ``PRNGKey(0)`` at widths (16, 16, 24, 32), N = 32
-(tests/test_golden_bins.py:_case_evc); that init runs once, under
-``jax.jit``, and reaches the port through ``evc_from_jax``.
+(tests/test_golden_bins.py:_case_evc); that init is replayed once by
+``tests/_flax_init.py`` (no init compile) and reaches the port through ``evc_from_jax``.
 Tolerances: blocks and the model's x_hat / bpp atol 2e-5 (f32
 convolutions in another summation order), dual-prior floats atol 1e-6,
 cross-package recons atol 1e-5; symbol planes and streams must be
@@ -38,6 +38,7 @@ from dcvc_tpu_torch.models.runtime import EvcCodecRuntime
 from dcvc_tpu_torch.ops.math import lower_bound
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.convert import evc_from_jax
+from _flax_init import init_params
 
 GOLDEN = Path(__file__).parent / "golden"
 GOLDEN_CH = (16, 16, 24, 32)
@@ -280,8 +281,7 @@ def test_golden_evc_pin_and_cross_package_streams():
     from test_golden_bins import _img
 
     jm = JEVCIntra(GOLDEN_CH, GOLDEN_CH, 32)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
-                              jnp.ones(()))
+    params = init_params(jm, jnp.zeros((1, 64, 64, 3)), jnp.ones(()))
     tm = EVCIntra(GOLDEN_CH, GOLDEN_CH, 32)
     tm.load_state_dict(evc_from_jax(jax.tree_util.tree_map(np.asarray, params)),
                        strict=True)

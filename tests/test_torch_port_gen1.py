@@ -10,8 +10,8 @@ the zoo's 64-level GaussianConditional.
 
 DCVCNet runs at the ``gen1_p`` golden pin's widths (mv / N / M = 16 / 16 /
 24) with the JAX ``PRNGKey(0)`` init the pin was coded with
-(tests/test_golden_bins.py:_case_gen1_p), once, under ``jax.jit``, carried
-over by ``dcvc_gen1_from_jax``. The port writes the pin byte for byte and
+(tests/test_golden_bins.py:_case_gen1_p), replayed once by
+``tests/_flax_init.py`` (no init compile), carried over by ``dcvc_gen1_from_jax``. The port writes the pin byte for byte and
 decodes it (a JAX stream); the JAX package decodes the same bytes in
 tests/test_golden_bins.py.
 
@@ -45,6 +45,7 @@ from dcvc_tpu_torch.models.video_dcvc import DCVCNet, MaskedConv2d
 from dcvc_tpu_torch.ops.warp import RD_GATED_BLOCK_MODE
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.convert import dcvc_gen1_from_jax
+from _flax_init import init_params
 
 WIDTHS = {"channel_mv": 16, "channel_N": 16, "channel_M": 24}
 ATOL = 2e-5
@@ -152,8 +153,7 @@ def test_ar_coding_identical_to_jax(tables):
 def gen1():
     jm = JDCVCNet(**WIDTHS)
     x0 = jnp.zeros((1, 64, 64, 3))
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0), x0, x0)
-    params = jax.tree_util.tree_map(np.asarray, params)
+    params = init_params(jm, x0, x0)
     tm = DCVCNet(**WIDTHS)
     tm.load_state_dict(dcvc_gen1_from_jax(params), strict=True)
     return tm.eval(), params
@@ -183,6 +183,38 @@ def test_golden_gen1_p_pin_and_cross_package_streams(gen1):
     dec = rt.decompress(ref, mv_y, mv_z, y, z, 192, 192)
     np.testing.assert_array_equal(dec["recon_image"].numpy(),
                                   comp["recon_image"].numpy())
+
+
+def test_gen1_two_part_streams_equal_jax(gen1):
+    """``stream_part = 2`` set after the runtime is built, as the CLIs and
+    the server set it (ROADMAP F5): the mv_z and z strings equal the JAX
+    runtime's on the pin's weights; the wavefront mv_y and y strings keep
+    one part (ROADMAP R5: the JAX package's multi-part AR strings do not
+    decode), and the frame decodes to the encoder's recon."""
+    from dcvc_tpu.models.runtime import DcvcGen1Runtime as JDcvcGen1Runtime
+    from test_golden_bins import _img
+
+    tm, params = gen1
+    ref = _nchw(_img(64, 128, seed=15, gain=12.0))
+    x = _nchw(_img(64, 128, seed=115, gain=12.0))
+    jrt = JDcvcGen1Runtime(JDCVCNet(**WIDTHS), params)
+    rt = DcvcGen1Runtime(tm, device="cpu")
+    one = DcvcGen1Runtime(tm, device="cpu")
+    one.update()
+    for r in (jrt, rt):
+        r.stream_part = 2
+        r.update(force=True)
+    jc = jrt.compress(jnp.asarray(_nhwc(ref)), jnp.asarray(_nhwc(x)))
+    tc = rt.compress(ref, x)
+    oc = one.compress(ref, x)
+    for k in ("mv_z_string", "z_string"):
+        assert tc[k] == bytes(jc[k]) != oc[k], k
+    for k in ("mv_y_string", "y_string"):
+        assert tc[k] == oc[k], k
+    dec = rt.decompress(ref, tc["mv_y_string"], tc["mv_z_string"],
+                        tc["y_string"], tc["z_string"], 64, 128)
+    np.testing.assert_array_equal(dec["recon_image"].numpy(),
+                                  tc["recon_image"].numpy())
 
 
 def test_gen1_block_mc_forward_matches_jax(gen1):

@@ -4,8 +4,9 @@ the JAX package, on the CPU.
 The two models run at the golden pins' widths (IntraNoARHem N = 32;
 DMCHem mv / N / M = 16 / 16 / 24) with the JAX ``PRNGKey(0)`` init those
 pins were coded with (tests/test_golden_bins.py:_case_hem_intra /
-_case_hem_p): each init runs once, under ``jax.jit``, in a module fixture,
-and reaches the port through ``intra_hem_from_jax`` / ``dmc_hem_from_jax``.
+_case_hem_p): each init is replayed once (``tests/_flax_init.py``: traced,
+its keys and draws in numpy, no init compile) in a module fixture, and
+reaches the port through ``intra_hem_from_jax`` / ``dmc_hem_from_jax``.
 The port writes each pin byte for byte and decodes it (a JAX stream); the
 JAX package decodes those same bytes in tests/test_golden_bins.py, so the
 pins need no JAX runtime here. Recons across packages are held by the
@@ -39,6 +40,7 @@ from dcvc_tpu_torch.models.video_hem import DMCHem
 from dcvc_tpu_torch.ops.warp import RD_GATED_BLOCK_MODE
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.convert import dmc_hem_from_jax, intra_hem_from_jax
+from _flax_init import init_params
 
 GOLDEN = Path(__file__).parent / "golden"
 P_WIDTHS = {"channel_mv": 16, "channel_N": 16, "channel_M": 24}
@@ -73,9 +75,7 @@ def _manifest(name):
 @pytest.fixture(scope="module")
 def intra():
     jm = JIntraNoARHem(N=32)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0),
-                              jnp.zeros((1, 64, 64, 3)), jnp.ones(()))
-    params = jax.tree_util.tree_map(np.asarray, params)
+    params = init_params(jm, jnp.zeros((1, 64, 64, 3)), jnp.ones(()))
     tm = IntraNoARHem(32)
     tm.load_state_dict(intra_hem_from_jax(params), strict=True)
     return tm.eval(), jm, params
@@ -129,9 +129,7 @@ def dmc():
     x0 = jnp.zeros((1, 64, 64, 3))
     dpb0 = {"ref_frame": x0, "ref_feature": None, "ref_y": None,
             "ref_mv_y": None}
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0), x0, dpb0, jnp.ones(()),
-                              jnp.ones(()))
-    params = jax.tree_util.tree_map(np.asarray, params)
+    params = init_params(jm, x0, dpb0, jnp.ones(()), jnp.ones(()))
     tm = DMCHem(**P_WIDTHS)
     tm.load_state_dict(dmc_hem_from_jax(params), strict=True)
     return tm.eval(), jm, params

@@ -1,10 +1,10 @@
 """Port IntraNoAR + IntraDcRuntime against the JAX package, on the CPU.
 
 Golden widths (N=32, ch_a=16, ch_b=24, tests/test_golden_bins.py:66) and
-the golden case's key (PRNGKey(0)), initialised under ``jax.jit``: half the
-time of the golden generator's op-by-op init, and the same params except
-the last ulp of 11 bit-estimator leaves, which leave the golden stream's
-bytes unchanged (the golden test below checks it); the flax params reach
+the golden case's key (PRNGKey(0)), replayed by ``tests/_flax_init.py``
+(no init compile): the same params as the jitted init except the last
+ulp of 11 bit-estimator leaves, which leave the golden stream's bytes
+unchanged (the golden test below checks it); the flax params reach
 the port through utils/convert.py with load_state_dict(strict=True).
 Tolerances: x_hat / bits / latents atol 1e-4 (f32 convolutions in another
 summation order through a deep network); symbol planes and int16 scale
@@ -30,6 +30,7 @@ from dcvc_tpu_torch.models.intra_dc import IntraNoAR, build_intra_dc
 from dcvc_tpu_torch.models.runtime import IntraDcRuntime
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.convert import intra_dc_from_jax
+from _flax_init import init_params
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -47,8 +48,8 @@ GOLDEN = Path(__file__).parent / "golden"
 @pytest.fixture(scope="module")
 def intra():
     jm = JIntraNoAR(N=32, ch_a=16, ch_b=24)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
-                              jnp.ones(()), jnp.ones(()))
+    params = init_params(jm, jnp.zeros((1, 64, 64, 3)), jnp.ones(()),
+                         jnp.ones(()))
     tm = IntraNoAR(N=32, ch_a=16, ch_b=24)
     tm.load_state_dict(intra_dc_from_jax(
         jax.tree_util.tree_map(np.asarray, params)), strict=True)

@@ -3,8 +3,8 @@ the JAX package, on the CPU.
 
 DMCTcm runs at the ``tcm_p`` golden pin's widths (mv / N / M = 16 / 16 /
 24) with the JAX ``PRNGKey(0)`` init the pin was coded with
-(tests/test_golden_bins.py:_case_tcm_p), once, under ``jax.jit``, carried
-over by ``dmc_tcm_from_jax``. The port writes the pin (the bare payload)
+(tests/test_golden_bins.py:_case_tcm_p), replayed once by
+``tests/_flax_init.py`` (no init compile), carried over by ``dmc_tcm_from_jax``. The port writes the pin (the bare payload)
 byte for byte, directly and with the decoder-aligned encode, and decodes
 it (a JAX stream); the JAX package decodes the same bytes in
 tests/test_golden_bins.py. The zoo I + TCM P pair at full width through
@@ -31,6 +31,7 @@ from dcvc_tpu_torch.models.runtime import TcmVideoRuntime
 from dcvc_tpu_torch.models.video_tcm import DMCTcm
 from dcvc_tpu_torch.ops.warp import RD_GATED_BLOCK_MODE
 from dcvc_tpu_torch.utils.convert import dmc_tcm_from_jax
+from _flax_init import init_params
 
 GOLDEN = Path(__file__).parent / "golden"
 WIDTHS = {"channel_mv": 16, "channel_N": 16, "channel_M": 24}
@@ -59,9 +60,7 @@ def _nhwc(t):
 def tcm():
     jm = JDMCTcm(**WIDTHS)
     x0 = jnp.zeros((1, 64, 64, 3))
-    params = jax.jit(jm.init, static_argnums=(3,))(
-        jax.random.PRNGKey(0), x0, x0, None)
-    params = jax.tree_util.tree_map(np.asarray, params)
+    params = init_params(jm, x0, x0, None)
     tm = DMCTcm(**WIDTHS)
     tm.load_state_dict(dmc_tcm_from_jax(params), strict=True)
     return tm.eval(), params

@@ -184,13 +184,24 @@ def _image():
     return np.asarray(_img(128, 192, seed=30, gain=8.0))
 
 
+_JAX_RUNTIMES = {}
+
+
+def _jax_runtime(name, jm, params):
+    """One JAX IntraZooRuntime per model, its programs compiled once."""
+    if name not in _JAX_RUNTIMES:
+        _JAX_RUNTIMES[name] = JIntraZooRuntime(jm, params)
+    jrt = _JAX_RUNTIMES[name]
+    jrt.update(force=True)
+    return jrt
+
+
 def test_zoo_streams_identical_and_decode_across(zoo):
     """Each model's strings equal the JAX IntraZooRuntime's on the same
     weights; each package decodes the other's."""
     name, tm, params, jm = zoo
     x = _image()
-    jrt = JIntraZooRuntime(jm, params)
-    jrt.update(force=True)
+    jrt = _jax_runtime(name, jm, params)
     rt = IntraZooRuntime(tm, device="cpu")
     rt.update()
     jc = jrt.compress(jnp.asarray(x))
@@ -205,6 +216,43 @@ def test_zoo_streams_identical_and_decode_across(zoo):
     np.testing.assert_array_equal(tdec["x_hat"].numpy(), tc["x_hat"].numpy())
     np.testing.assert_allclose(_nhwc(tdec["x_hat"]), np.asarray(jdec["x_hat"]),
                                atol=ATOL)
+
+
+def test_zoo_two_part_streams_equal_jax(zoo):
+    """``stream_part = 2`` set after the runtime is built, as the CLIs and
+    the server set it (ROADMAP F5): the z strings and the one-shot y
+    strings equal the JAX runtime's. The joint models' wavefront y string
+    keeps one part (the port's own one-part string): the JAX package's
+    two-part AR string does not decode to its encoder's recon (ROADMAP
+    R5), the port's does."""
+    name, tm, params, jm = zoo
+    x = _image()
+    jrt = _jax_runtime(name, jm, params)
+    rt = IntraZooRuntime(tm, device="cpu")
+    one = IntraZooRuntime(tm, device="cpu")
+    one.update()
+    for r in (jrt, rt):
+        r.stream_part = 2
+        r.update(force=True)
+    try:
+        jc = jrt.compress(jnp.asarray(x))
+        jdec = jrt.decompress(jc["strings"], jc["shape"])
+    finally:
+        jrt.stream_part = 1
+    tc = rt.compress(_nchw(x))
+    oc = one.compress(_nchw(x))
+    joint = rt.kind == "joint"
+    if len(tc["strings"]) > 1:      # z; the factorized model has y only
+        assert tc["strings"][1] == jc["strings"][1] != oc["strings"][1]
+    if joint:
+        assert tc["strings"][0] == oc["strings"][0] != jc["strings"][0]
+        gap = float(np.abs(np.asarray(jdec["x_hat"])
+                           - np.asarray(jc["x_hat"])).max())
+        assert gap > 1e-3, f"R5: JAX's two-part AR string decoded ({gap})"
+    else:
+        assert tc["strings"][0] == jc["strings"][0] != oc["strings"][0]
+    dec = rt.decompress(tc["strings"], rt.latent_shape(128, 192))
+    np.testing.assert_array_equal(dec["x_hat"].numpy(), tc["x_hat"].numpy())
 
 
 def test_zoo_forward_matches_jax(zoo):
