@@ -163,9 +163,23 @@ no result line):
      (1 + 1), K1 against its plain version (atol 0) on the maps compress
      warped and timed at the 64-channel full-resolution map. Every frame:
      symbols equal, every gap <= 4e-3, none above 0.05;
- 33. one JSON line per kernel, then the result line.
+ 33. sharded inference (dcvc_tpu_torch.tools.mesh_check, the port's own
+     entry point): one NCCL rank per visible card, each a process of its
+     own, on make_mesh over every rank. DMC at full width codes two
+     chained P-frames of seeded panning 1080p content (padded to 1088; each
+     data group its own content) through the sharded DmcRuntime: on the
+     data-only mesh with the block OD warp (K1 launches counted on each
+     rank, at least one each), then on the widest tile axis with the exact
+     and the tile:16,2,median OD warps (K1 counted 0), and on four cards
+     also data 2 x tile 2. Encode / decode ms; the sharded decoder's DPB
+     within 1e-4 of the sharded encoder's (the stream decodes); against
+     the unsharded runtime on the same card: bytes equal or not, symbol
+     and scale-index mismatches on the same input DPB, and the DPB gap.
+     On one card every mesh is (1, 1): the halo code runs with only
+     global edges, and no collective moves a row;
+ 34. one JSON line per kernel, then the result line.
 
-Every path (7 to 32) runs with the kernels' launch counts set to 0 just
+Every path (7 to 33) runs with the kernels' launch counts set to 0 just
 before it and read just after. The server process of 29 and the pool's
 workers of 30 cannot report their counts: K1's are given as what the
 same calls launch in process (28, and 30's in-process run). Paths 7, 8, 9, 14, 19, 20's block-mc
@@ -3752,6 +3766,51 @@ def bf16_phase(results: dict):
                        "gens": _gens_bf16(results)}
 
 
+def sharded_phase(results: dict):
+    """Sharded P-frame coding on a mesh of every visible card, through
+    ``python -m dcvc_tpu_torch.tools.mesh_check``'s ``run`` (one process
+    per rank); fails on any limit that tool checks."""
+    import torch
+
+    from dcvc_tpu_torch.tools import mesh_check
+
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    res = mesh_check.run(nproc=n, height=HEIGHT, width=WIDTH, timeout=600)
+    if res["failures"]:
+        raise AssertionError("sharded: " + "; ".join(res["failures"]))
+    paths = {}
+    for row in res["rows"]:
+        name = f"sharded_{row['mesh'][0]}x{row['mesh'][1]}_{row['mode']}"
+        path = paths.setdefault(name, {
+            "mesh": row["mesh"], "od_warp": row["od_warp"], "ranks": 0,
+            "launches": {"block_warp": 0, "band_copy": 0}, "frames": []})
+        path["ranks"] += 1
+        for k, v in row["launches"].items():
+            path["launches"][k] += v
+        for fr in row["frames"]:
+            path["frames"].append({"rank": row["rank"], **fr})
+    for name, path in paths.items():
+        fr = path["frames"]
+        path["summary"] = {
+            "encode_ms": [f["encode_ms"] for f in fr],
+            "decode_ms": [f["decode_ms"] for f in fr],
+            "bytes_equal_unsharded": all(f["bytes_equal_unsharded"]
+                                         for f in fr),
+            "symbol_mismatches": sum(f["symbol_mismatches"] for f in fr),
+            "index_mismatches": sum(f["index_mismatches"] for f in fr),
+            "symbols": sum(f["symbols"] for f in fr),
+            "dpb_gap_dec_vs_enc": max(f["dpb_gap_dec_vs_enc"] for f in fr),
+            "dpb_gap_vs_unsharded_enc": max(f["dpb_gap_vs_unsharded_enc"]
+                                            for f in fr)}
+        if n == 1:
+            path["note"] = ("one card: a (1, 1) mesh; the halo code runs "
+                            "with only global edges")
+        print(f"sharded {name} {json.dumps(path)} ({_card()})", flush=True)
+    results["sharded"] = {"paths": paths, "seconds": res["seconds"],
+                          "nproc": n}
+
+
 def main() -> int:
     import torch
 
@@ -3788,7 +3847,7 @@ def main() -> int:
               zoo_tcm_cli_phase, train_card_cpu_phase, train_fit_phase,
               train_remat_phase, train_intra_phase, train_ckpt_phase,
               train_cli_phase, serving_phase, serve_cli_phase, pool_phase,
-              tools_phase, bf16_phase]
+              tools_phase, bf16_phase, sharded_phase]
     for i, phase in enumerate(phases):
         t = time.time()
         phase(results)
@@ -3843,6 +3902,11 @@ def main() -> int:
                 for k in ("card_cpu", "fit", "remat", "intra", "cli")} | {
             "training_checkpoint_coding":
                 results["train_ckpt"]["launches"][kernel]}
+    def sharded_launches(kernel):
+        """Launches on the sharded paths, summed over their ranks (each
+        rank counts its own from 0 around its path)."""
+        return {name: p["launches"][kernel]
+                for name, p in results["sharded"]["paths"].items()}
     def serving_launches(kernel):
         """Launches on the serving, serve-CLI, pool and tools paths; the
         server process and the pool's workers count their own and write
@@ -3867,7 +3931,8 @@ def main() -> int:
             "gen1_block_mc": results["gen1_block"]["launches"]["block_warp"],
             **bf16_block_mc("block_warp"),
             **training_launches("block_warp"),
-            **serving_launches("block_warp")},
+            **serving_launches("block_warp"),
+            **sharded_launches("block_warp")},
         "max_abs_err": max(r["max_abs_err"] for n, r in k1.items()
                            if n.endswith("f32")),
         "max_abs_err_bf16": max(r["max_abs_err"] for n, r in k1.items()
@@ -3923,7 +3988,8 @@ def main() -> int:
                              ["launches"]["band_copy"],
                              **bf16_block_mc("band_copy"),
                              **training_launches("band_copy"),
-                             **serving_launches("band_copy")},
+                             **serving_launches("band_copy"),
+                             **sharded_launches("band_copy")},
         "max_abs_err": max(r["max_abs_err"]
                            for r in results["band_copy"].values()),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],

@@ -27,6 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import tile
+
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with a compute dtype (``compute_dtype``, set by
@@ -35,31 +37,55 @@ class Conv2d(nn.Conv2d):
     adds the bias cast to it, in flax's order: with the bias fused, a bf16
     convolution differs from the JAX package's in about a quarter of its
     outputs by an ulp. Without a compute dtype a bf16 input is widened to
-    the parameters' dtype first (flax's ``promote_dtype``)."""
+    the parameters' dtype first (flax's ``promote_dtype``). Under a tile
+    context (``parallel/tile.py``) H is padded with the neighbour ranks'
+    rows, and with zeros only at the global edges."""
 
     compute_dtype = None
 
-    def forward(self, x):
+    def _conv(self, x, padding):
         dt = self.compute_dtype
         if dt is None:
-            return super().forward(x.to(self.weight.dtype))
-        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+            return F.conv2d(x.to(self.weight.dtype), self.weight, self.bias,
+                            self.stride, padding, self.dilation, self.groups)
+        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
+                     padding, self.dilation, self.groups)
         return y if self.bias is None else y + self.bias.to(dt).view(-1, 1, 1)
+
+    def forward(self, x):
+        ctx = tile.current()
+        if ctx is None:
+            return self._conv(x, self.padding)
+        return ctx.conv_rows(x, self.kernel_size[0], self.stride[0],
+                             self.padding[0],
+                             lambda t: self._conv(t, (0, self.padding[1])))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` with a compute dtype, as ``Conv2d``."""
+    """``nn.ConvTranspose2d`` with a compute dtype, as ``Conv2d``; under a
+    tile context its input takes halo rows and its output is cut to this
+    rank's rows."""
 
     compute_dtype = None
 
-    def forward(self, x):
+    def _conv(self, x):
         dt = self.compute_dtype
         if dt is None:
-            return super().forward(x.to(self.weight.dtype))
+            return F.conv_transpose2d(
+                x.to(self.weight.dtype), self.weight, self.bias, self.stride,
+                self.padding, self.output_padding, self.groups, self.dilation)
         y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
                                self.stride, self.padding, self.output_padding,
                                self.groups, self.dilation)
         return y if self.bias is None else y + self.bias.to(dt).view(-1, 1, 1)
+
+    def forward(self, x):
+        ctx = tile.current()
+        if ctx is None:
+            return self._conv(x)
+        return ctx.conv_transpose_rows(
+            x, self.kernel_size[0], self.stride[0], self.padding[0],
+            self.output_padding[0], self._conv)
 
 
 class Linear(nn.Linear):
@@ -285,12 +311,19 @@ class DepthConvBlock2(nn.Module):
         return self.block(x)
 
 
+def _even_rows(x: torch.Tensor) -> torch.Tensor:
+    """A 2x2 pool is local to a slab of even rows under a tile context."""
+    if tile.current() is not None and x.shape[2] % 2:
+        raise ValueError(f"a 2x2 pool of {x.shape[2]} local rows")
+    return x
+
+
 def max_pool2(x: torch.Tensor) -> torch.Tensor:
-    return F.max_pool2d(x, 2, 2)
+    return F.max_pool2d(_even_rows(x), 2, 2)
 
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
-    return F.avg_pool2d(x, 2, 2)
+    return F.avg_pool2d(_even_rows(x), 2, 2)
 
 
 class UNet(nn.Module):

@@ -11,7 +11,10 @@ are the reference EVC checkpoint's (``port_dc._evc_encoder`` /
 ``bit_estimator_z``, ``q_basic`` (1, N, 1, 1) and ``q_scale`` (4, 1, 1, 1),
 so a published EVC ``.pth`` loads with ``load_state_dict(strict=True)``.
 ``dtype`` (None = f32, or ``torch.bfloat16``) is the compute dtype of
-``layers/blocks.py``; parameters stay f32.
+``layers/blocks.py``; parameters stay f32. Under a tile context
+(``parallel/tile.py``) the hyperprior runs whole on the gathered rows of
+y and the prior parameters are cut to this rank's rows again; the bits of
+y are summed over the tile axis.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..layers.blocks import (
 )
 from ..layers.evc_blocks import DepthConvBlockUpsample, EvcDepthConvBlock
 from ..ops.math import lower_bound
+from ..parallel import tile
 from . import priors
 
 EVC_CHANNEL_GRID = {
@@ -109,8 +113,18 @@ class DualPriorCodec(nn.Module):
         return self.y_spatial_prior(params).chunk(4, dim=1)
 
     def prior_params(self, z_hat):
-        """(q_step, scales, means) from the decoded hyper-latent."""
-        return priors.separate_prior(self.y_prior_fusion(self.hyper_dec(z_hat)))
+        """(q_step, scales, means) from the decoded hyper-latent (this
+        rank's rows of them under a tile context)."""
+        with tile.whole():
+            params = self.y_prior_fusion(self.hyper_dec(z_hat))
+        return priors.separate_prior(tile.own_rows(params))
+
+    def hyper_latent(self, y):
+        """z of latent ``y``, run whole on its gathered rows under a tile
+        context."""
+        y = tile.gather_rows(y)
+        with tile.whole():
+            return self.hyper_enc(y)
 
     def synthesize(self, y_hat, q_scale):
         return self.reconstruct(y_hat * self.get_curr_q(q_scale))
@@ -124,7 +138,7 @@ class DualPriorCodec(nn.Module):
         (already divided by the quant step) for input ``x``. With a
         ``generator`` the bits come from noise-added residuals (the
         training surrogate; y, then z)."""
-        z = self.hyper_enc(y)
+        z = self.hyper_latent(y)
         z_hat = quant(z)
         q_step, scales, means = self.prior_params(z_hat)
         y_res, y_q, y_hat, scales_hat = priors.forward_dual_prior(
@@ -136,13 +150,13 @@ class DualPriorCodec(nn.Module):
             z_hat = priors.quant_noise(z, generator)
         bits_y = bits.y_gaussian_bits(y_q, torch.clamp(scales_hat, 0.11, 1e10))
         bits_z = bits.z_bits(z_hat, self.bit_estimator_z)
-        pixel_num = x.shape[2] * x.shape[3]
-        bpp_y = bits_y.sum(dim=(1, 2, 3)) / pixel_num
+        pixel_num = tile.global_rows(x.shape[2]) * x.shape[3]
+        bpp_y = tile.sum_tiles(bits_y.sum(dim=(1, 2, 3))) / pixel_num
         bpp_z = bits_z.sum(dim=(1, 2, 3)) / pixel_num
         return x_hat, bpp_y, bpp_z, pixel_num
 
     def _compress_latent(self, y, curr_q):
-        z_hat = torch.round(self.hyper_enc(y))
+        z_hat = torch.round(self.hyper_latent(y))
         q_step, scales, means = self.prior_params(z_hat)
         y_q_w0, y_q_w1, s_w0, s_w1, y_hat = priors.forward_dual_prior(
             y, means, scales, q_step, self.spatial_prior_chunks, write=True)

@@ -7,12 +7,16 @@ DCVC-DC/src/models/common_model.py:88-321; forward/compress/
 decompress_dual_prior, DCVC-HEM/src/models/common_model.py:83-188 and
 EVC/src/models/common_model.py:58-164). ``torch.round`` rounds half to
 even like ``jnp.round``. The decode paths are sets of per-step functions so
-the host rANS decoder sits between them.
+the host rANS decoder sits between them. Under a tile context
+(``parallel/tile.py``) the masks of a slab take the global row parity of
+its first row.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel import tile
 
 # step s codes channel-quarter c at spatial phase FOUR_PART_PERM[s][c]
 FOUR_PART_PERM = (
@@ -69,17 +73,20 @@ def resolve_quant(quant_mode: str):
 
 
 def spatial_phase_mask(H: int, W: int, phase: int, dtype=torch.float32,
-                       device=None) -> torch.Tensor:
-    """[1, 1, H, W] mask selecting the 2x2 micro-phase ``phase`` (row-major)."""
+                       device=None, row0: int = 0) -> torch.Tensor:
+    """[1, 1, H, W] mask selecting the 2x2 micro-phase ``phase`` (row-major)
+    of rows ``row0`` .. ``row0 + H - 1``."""
     ph, pw = divmod(phase, 2)
-    rows = torch.arange(H, device=device) % 2 == ph
+    rows = torch.arange(row0, row0 + H, device=device) % 2 == ph
     cols = torch.arange(W, device=device) % 2 == pw
     return (rows[:, None] & cols[None, :]).to(dtype)[None, None]
 
 
 def _masks(ref: torch.Tensor):
     H, W = ref.shape[2], ref.shape[3]
-    return [spatial_phase_mask(H, W, p, ref.dtype, ref.device) for p in range(4)]
+    row0 = tile.offset_of(H)
+    return [spatial_phase_mask(H, W, p, ref.dtype, ref.device, row0)
+            for p in range(4)]
 
 
 def separate_prior(params: torch.Tensor):
@@ -193,17 +200,19 @@ def four_part_finalize(common_params, y_hat_so_far):
 
 
 def checkerboard_mask(H: int, W: int, parity: int, dtype=torch.float32,
-                      device=None) -> torch.Tensor:
-    """[1, 1, H, W] checkerboard; parity 0 = (h+w) even ([[1,0],[0,1]])."""
-    hw = (torch.arange(H, device=device)[:, None]
+                      device=None, row0: int = 0) -> torch.Tensor:
+    """[1, 1, H, W] checkerboard of rows ``row0`` .. ``row0 + H - 1``;
+    parity 0 = (h+w) even ([[1,0],[0,1]])."""
+    hw = (torch.arange(row0, row0 + H, device=device)[:, None]
           + torch.arange(W, device=device)[None, :]) % 2
     return (hw == parity).to(dtype)[None, None]
 
 
 def _checkerboards(ref: torch.Tensor):
     H, W = ref.shape[2], ref.shape[3]
-    return (checkerboard_mask(H, W, 0, ref.dtype, ref.device),
-            checkerboard_mask(H, W, 1, ref.dtype, ref.device))
+    row0 = tile.offset_of(H)
+    return (checkerboard_mask(H, W, 0, ref.dtype, ref.device, row0),
+            checkerboard_mask(H, W, 1, ref.dtype, ref.device, row0))
 
 
 def forward_dual_prior(y, means, scales, quant_step, spatial_prior_fn, *,

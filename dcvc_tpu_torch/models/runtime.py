@@ -19,6 +19,15 @@ on the host by wavefronts (``ar_coding.py``).
 
 Frames and DPB tensors are NCHW. Runtimes run on ``cuda`` unless built with
 ``device="cpu"``; without a card they raise.
+
+A runtime built with a ``mesh`` (``parallel/mesh.py``; ``DmcRuntime`` and
+``EvcCodecRuntime``) takes and returns this rank's slabs of frames
+and DPBs (H over the tile axis; a coded frame is B = 1, replicated over
+data, ``mesh.tile_sharding``) and enters the tile context
+(``parallel/tile.py``) for each call. Host rANS needs whole planes: the
+symbols and the scales are gathered over the tile axis before coding, so
+the bytes are those of unsharded coding; on decode each step's scales are
+gathered, and each rank keeps its own rows of the host-decoded symbols.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from ..entropy.coder import AsyncEntropyCoder, EntropyCoder
 from ..entropy.gaussian import GaussianConditionalCoder
 from ..entropy.gaussian_conditional import GaussianConditional
 from ..ops.warp import get_downsampled_shape, get_padding_size
+from ..parallel import tile
 from . import priors
 from .ar_coding import ArNets, ar_decode, ar_encode
 from .intra_dc import build_fine_q_tables
@@ -81,9 +91,11 @@ class _RuntimeBase:
 
     y_distribution = "gaussian"
 
-    def __init__(self, module, ec_thread=False, stream_part=1, device=None):
+    def __init__(self, module, ec_thread=False, stream_part=1, device=None,
+                 mesh=None):
         self.device = resolve_device(device)
         self.module = module.to(self.device).eval()
+        self.mesh = mesh
         self.ec_thread = ec_thread
         self.stream_part = stream_part
         self.entropy_coder: EntropyCoder | None = None
@@ -106,6 +118,10 @@ class _RuntimeBase:
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def _slab_height(self, x: torch.Tensor) -> int:
+        """Rows of the whole frame whose slab is ``x``."""
+        return x.shape[2] * tile.tiles(self.mesh)
 
     def _from_host_nhwc(self, a: np.ndarray) -> torch.Tensor:
         # copy into fresh NCHW strides: a permuted view with size-1 dims
@@ -132,10 +148,12 @@ class _RuntimeBase:
             self.entropy_coder, (n, h, w, c), self._z_tables[name]))
 
     def _host_decode(self, scales_r: torch.Tensor) -> torch.Tensor:
-        """rANS-decode one four-part plane whose scales are ``scales_r``."""
-        idx = _to_host_nhwc(self.gaussian.build_indexes(scales_r))
-        return self._from_host_nhwc(
-            self.gaussian.decode_with_indexes(self.entropy_coder, idx))
+        """rANS-decode one plane whose scales are ``scales_r`` (whole, from
+        the gathered rows, under a tile context; this rank's rows out)."""
+        idx = _to_host_nhwc(self.gaussian.build_indexes(
+            tile.gather_rows(scales_r)))
+        return tile.own_rows(self._from_host_nhwc(
+            self.gaussian.decode_with_indexes(self.entropy_coder, idx)))
 
     def _decode_four_part(self, scales_step, params, channels: int,
                           sym_source=None):
@@ -174,14 +192,17 @@ class EvcCodecRuntime(_RuntimeBase):
     @torch.no_grad()
     def forward(self, x, q_scale):
         """Estimated-bits forward: ``{"x_hat", "bit", "bpp", ...}``."""
-        return self.module(self._tensor(x), self._tensor(q_scale))
+        x = self._tensor(x)
+        with tile.context(self.mesh, self._slab_height(x)):
+            return self.module(x, self._tensor(q_scale))
 
     @torch.no_grad()
     def compress(self, x, q_scale):
-        out = self.module.compress_device(self._tensor(x),
-                                          self._tensor(q_scale))
-        return {"bit_stream": self._encode_aligned(out),
-                "x_hat": out["x_hat"]}
+        x = self._tensor(x)
+        with tile.context(self.mesh, self._slab_height(x)):
+            out = self.module.compress_device(x, self._tensor(q_scale))
+            return {"bit_stream": self._encode_aligned(out),
+                    "x_hat": out["x_hat"]}
 
     def _decode_dual(self, z_hat, sym_source):
         """The decoder's chain from z to the two halves of y_hat (before the
@@ -197,13 +218,14 @@ class EvcCodecRuntime(_RuntimeBase):
         """Write z and the symbol planes of ``compress_device``'s ``out``
         with the indexes the decoder derives from them."""
         z_np = _to_host_nhwc(out["z_hat"])
-        planes = [_to_host_nhwc(torch.round(torch.clamp(q, -30000, 30000)))
-                  for q in out["y_q_planes"]]
+        planes = [_to_host_nhwc(torch.round(torch.clamp(
+            tile.gather_rows(q), -30000, 30000))) for q in out["y_q_planes"]]
         indexes = []
 
         def sym_source(scales_r):
-            indexes.append(_to_host_nhwc(self.gaussian.build_indexes(scales_r)))
-            return self._from_host_nhwc(planes[len(indexes) - 1])
+            indexes.append(_to_host_nhwc(self.gaussian.build_indexes(
+                tile.gather_rows(scales_r))))
+            return tile.own_rows(self._from_host_nhwc(planes[len(indexes) - 1]))
 
         self._decode_dual(self._from_host_nhwc(z_np), sym_source)
         self.entropy_coder.reset()
@@ -217,10 +239,13 @@ class EvcCodecRuntime(_RuntimeBase):
     def decompress(self, bit_stream, height, width, q_scale):
         self.entropy_coder.set_stream(bit_stream)
         zh, zw = get_downsampled_shape(height, width, 64)
-        z_hat = self._decode_z("bit_estimator_z", (1, self.module.N, zh, zw))
-        half0, half1, q_step = self._decode_dual(z_hat, self._host_decode)
-        y_hat = torch.cat([half0, half1], dim=1) * torch.clamp_min(q_step, 0.5)
-        x_hat = self.module.synthesize(y_hat, self._tensor(q_scale))
+        with tile.context(self.mesh, height):
+            z_hat = self._decode_z("bit_estimator_z",
+                                   (1, self.module.N, zh, zw))
+            half0, half1, q_step = self._decode_dual(z_hat, self._host_decode)
+            y_hat = (torch.cat([half0, half1], dim=1)
+                     * torch.clamp_min(q_step, 0.5))
+            x_hat = self.module.synthesize(y_hat, self._tensor(q_scale))
         return {"x_hat": torch.clamp(x_hat, 0.0, 1.0)}
 
 
@@ -690,8 +715,9 @@ class DmcRuntime(_RuntimeBase):
 
     y_distribution = "laplace"
 
-    def __init__(self, module, ec_thread=False, stream_part=1, device=None):
-        super().__init__(module, ec_thread, stream_part, device)
+    def __init__(self, module, ec_thread=False, stream_part=1, device=None,
+                 mesh=None):
+        super().__init__(module, ec_thread, stream_part, device, mesh)
         self.fine_q = get_dmc_q_tables(self.module)
         self._q_anchor = {n: getattr(self.module, n).detach().cpu().numpy()
                           .reshape(-1) for n in Q_SCALE_NAMES}
@@ -715,24 +741,37 @@ class DmcRuntime(_RuntimeBase):
                           q_index: int = 0, frame_idx: int = 0):
         """Estimated-bits P-frame: ``{"dpb", "bit", "bpp", ...}``."""
         qs = self.get_q_for_inference(q_in_ckpt, q_index)
-        return self.module(self._tensor(x), dpb, qs, frame_idx % 4)
+        x = self._tensor(x)
+        with tile.context(self.mesh, self._slab_height(x)):
+            return self.module(x, dpb, qs, frame_idx % 4)
+
+    @torch.no_grad()
+    def code_planes(self, x, dpb, q_in_ckpt: bool, q_index: int,
+                    frame_idx: int):
+        """The device half of ``compress``: ``compress_device``'s output,
+        then the flat int16 symbols and scale indexes of the eight
+        four-part planes in stream order (whole planes under a mesh)."""
+        qs = self.get_q_for_inference(q_in_ckpt, q_index)
+        x = self._tensor(x)
+        height = self._slab_height(x)
+        with tile.context(self.mesh, height):
+            out = self.module.compress_device(x, dpb, qs, frame_idx)
+            planes = out["mv_y_q_planes"] + out["y_q_planes"]
+            scales = out["mv_scales_planes"] + out["scales_planes"]
+            syms = [_symbols_nhwc(tile.gather_rows(q)) for q in planes]
+            if self.aligned_enc:
+                idx = self._aligned_indexes(
+                    out["mv_z_hat"], out["z_hat"], np.concatenate(syms), dpb,
+                    qs, frame_idx, height // 16, x.shape[3] // 16)
+            else:
+                idx = [_to_host_nhwc(self.gaussian.build_indexes(
+                    tile.gather_rows(s))).reshape(-1) for s in scales]
+        return out, syms, idx
 
     @torch.no_grad()
     def compress(self, x, dpb, q_in_ckpt: bool, q_index: int, frame_idx: int):
-        qs = self.get_q_for_inference(q_in_ckpt, q_index)
-        x = self._tensor(x)
-        out = self.module.compress_device(x, dpb, qs, frame_idx)
-        planes = out["mv_y_q_planes"] + out["y_q_planes"]
-        scales = out["mv_scales_planes"] + out["scales_planes"]
-        syms = [_symbols_nhwc(q) for q in planes]
-        if self.aligned_enc:
-            yh, yw = x.shape[2] // 16, x.shape[3] // 16
-            idx = self._aligned_indexes(out["mv_z_hat"], out["z_hat"],
-                                        np.concatenate(syms), dpb, qs,
-                                        frame_idx, yh, yw)
-        else:
-            idx = [_to_host_nhwc(self.gaussian.build_indexes(s)).reshape(-1)
-                   for s in scales]
+        out, syms, idx = self.code_planes(x, dpb, q_in_ckpt, q_index,
+                                          frame_idx)
         self.entropy_coder.reset()
         self._encode_z("bit_estimator_z_mv", out["mv_z_hat"])
         self._encode_z("bit_estimator_z", out["z_hat"])
@@ -772,12 +811,13 @@ class DmcRuntime(_RuntimeBase):
 
         def sym_source(scales_r):
             nonlocal offset
-            idx = _to_host_nhwc(self.gaussian.build_indexes(scales_r))
+            idx = _to_host_nhwc(self.gaussian.build_indexes(
+                tile.gather_rows(scales_r)))
             recorded.append(idx.reshape(-1))
             n = idx.size
             plane = sym[offset:offset + n].reshape(idx.shape)
             offset += n
-            return self._from_host_nhwc(plane)
+            return tile.own_rows(self._from_host_nhwc(plane))
 
         self._decode_latents(self._from_host_nhwc(_to_host_nhwc(mv_z_hat)),
                              self._from_host_nhwc(_to_host_nhwc(z_hat)), dpb,
@@ -792,12 +832,14 @@ class DmcRuntime(_RuntimeBase):
         self.entropy_coder.set_stream(string)
         zh, zw = get_downsampled_shape(height, width, 64)
         yh, yw = get_downsampled_shape(height, width, 16)
-        mv_z_hat = self._decode_z("bit_estimator_z_mv", (1, 64, zh, zw))
-        z_hat = self._decode_z("bit_estimator_z", (1, G_CH["16x"], zh, zw))
-        y_params, y_sofar, contexts, mv_y_hat, mv_feature = \
-            self._decode_latents(mv_z_hat, z_hat, dpb, qs, frame_idx, yh, yw)
-        x_hat, feature, y_hat = m.decode_recon_stage(
-            y_params, y_sofar, contexts, qs["y_dec"])
+        with tile.context(self.mesh, height):
+            mv_z_hat = self._decode_z("bit_estimator_z_mv", (1, 64, zh, zw))
+            z_hat = self._decode_z("bit_estimator_z", (1, G_CH["16x"], zh, zw))
+            y_params, y_sofar, contexts, mv_y_hat, mv_feature = \
+                self._decode_latents(mv_z_hat, z_hat, dpb, qs, frame_idx,
+                                     yh, yw)
+            x_hat, feature, y_hat = m.decode_recon_stage(
+                y_params, y_sofar, contexts, qs["y_dec"])
         return {
             "dpb": {
                 "ref_frame": x_hat,

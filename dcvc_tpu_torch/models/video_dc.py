@@ -13,6 +13,12 @@ the first P-frame after an I-frame). ``dtype`` (None = f32, or
 ``torch.bfloat16``) is the compute dtype of ``layers/blocks.py``;
 parameters stay f32 and the DPB's dtypes are a fixed point of the P-frame
 step, as in the JAX package (``tests/test_dtype_consistency.py``).
+
+Under a tile context (``parallel/tile.py``) every tensor is this rank's
+slab of H rows; the hyper paths (z at 1/64 of the frame, where the rows
+stop dividing) gather the latent's rows and run whole, replicated over the
+tile axis, and the prior parameters are cut to this rank's rows again;
+the per-sample bits of the latents are summed over the tile axis.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from ..layers.blocks import (
     subpel_conv,
 )
 from ..ops.warp import bilinear_down2, crop_lrtb, get_padding_size, resolve_warp_fn
+from ..parallel import tile
 from . import priors
 from .intra_dc import build_fine_q_tables, pad_for_y
 from .video_net import (
@@ -243,8 +250,24 @@ class DMC(nn.Module):
                         self.y_spatial_prior_adaptor_3]
         return [lambda params, a=a: net(a(params)).chunk(8, 1) for a in adaptors]
 
+    @staticmethod
+    def _hyper(enc, y):
+        """Hyper-latent of ``y`` (whole under a tile context) and the
+        latent's padding."""
+        y_pad, slice_shape = pad_for_y(tile.gather_rows(y))
+        with tile.whole():
+            return enc(y_pad), slice_shape
+
+    @staticmethod
+    def _hyper_params(dec, z_hat, slice_shape):
+        """The hyper decoder's prior parameters, this rank's rows."""
+        with tile.whole():
+            p = crop_lrtb(dec(z_hat), slice_shape)
+        return tile.own_rows(p)
+
     def mv_prior_param_decoder(self, mv_z_hat, ref_mv_y, slice_shape):
-        p = crop_lrtb(self.mv_hyper_prior_decoder(mv_z_hat), slice_shape)
+        p = self._hyper_params(self.mv_hyper_prior_decoder, mv_z_hat,
+                               slice_shape)
         if ref_mv_y is None:
             p = self.mv_y_prior_fusion_adaptor_0(p)
         else:
@@ -252,7 +275,8 @@ class DMC(nn.Module):
         return self.mv_y_prior_fusion(p)
 
     def res_prior_param_decoder(self, z_hat, ref_y, context3, slice_shape):
-        hier = crop_lrtb(self.contextual_hyper_prior_decoder(z_hat), slice_shape)
+        hier = self._hyper_params(self.contextual_hyper_prior_decoder, z_hat,
+                                  slice_shape)
         t = self.temporal_prior_encoder(context3)
         if ref_y is None:
             p = self.y_prior_fusion_adaptor_0(torch.cat([t, hier], dim=1))
@@ -300,8 +324,7 @@ class DMC(nn.Module):
     def _mv_branch_analysis(self, x, dpb, mv_y_q_enc):
         est_mv = self.optic_flow(x, dpb["ref_frame"])
         mv_y = self.mv_encoder(est_mv, dpb["ref_mv_feature"], mv_y_q_enc)
-        mv_y_pad, slice_shape = pad_for_y(mv_y)
-        return mv_y, self.mv_hyper_prior_encoder(mv_y_pad), slice_shape
+        return (mv_y, *self._hyper(self.mv_hyper_prior_encoder, mv_y))
 
     # ---- full paths ----
 
@@ -326,8 +349,7 @@ class DMC(nn.Module):
             dpb, mv_hat, frame_idx)
 
         y = self.contextual_encoder(x, context1, context2, context3, y_q_enc)
-        y_pad, slice_shape = pad_for_y(y)
-        z = self.contextual_hyper_prior_encoder(y_pad)
+        z, slice_shape = self._hyper(self.contextual_hyper_prior_encoder, y)
         z_hat = quant(z)
         params = self.res_prior_param_decoder(z_hat, dpb["ref_y"], context3,
                                               slice_shape)
@@ -343,11 +365,12 @@ class DMC(nn.Module):
             mv_y_q = priors.quant_noise(mv_y_res, generator)
             z_hat = priors.quant_noise(z, generator)
             mv_z_hat = priors.quant_noise(mv_z, generator)
-        pixel_num = x.shape[2] * x.shape[3]
+        pixel_num = tile.global_rows(x.shape[2]) * x.shape[3]
         bpp = {}
         for k, b in (("bpp_y", bits.y_laplace_bits(y_q, scales_hat)),
-                     ("bpp_mv_y", bits.y_laplace_bits(mv_y_q, mv_scales_hat)),
-                     ("bpp_z", bits.z_bits(z_hat, self.bit_estimator_z)),
+                     ("bpp_mv_y", bits.y_laplace_bits(mv_y_q, mv_scales_hat))):
+            bpp[k] = tile.sum_tiles(b.sum(dim=(1, 2, 3))) / pixel_num
+        for k, b in (("bpp_z", bits.z_bits(z_hat, self.bit_estimator_z)),
                      ("bpp_mv_z", bits.z_bits(mv_z_hat,
                                               self.bit_estimator_z_mv))):
             bpp[k] = b.sum(dim=(1, 2, 3)) / pixel_num
@@ -377,8 +400,8 @@ class DMC(nn.Module):
             dpb, mv_hat, frame_idx)
 
         y = self.contextual_encoder(x, context1, context2, context3, y_q_enc)
-        y_pad, slice_shape = pad_for_y(y)
-        z_hat = torch.round(self.contextual_hyper_prior_encoder(y_pad))
+        z, slice_shape = self._hyper(self.contextual_hyper_prior_encoder, y)
+        z_hat = torch.round(z)
         params = self.res_prior_param_decoder(z_hat, dpb["ref_y"], context3,
                                               slice_shape)
         y_q_w, s_w, y_hat = priors.forward_four_part_prior(

@@ -1,6 +1,7 @@
 """Port layer zoo (dcvc_tpu_torch/layers/blocks.py) against the flax blocks.
 
-Each block is initialised in flax from a fixed key, its params go through
+Each block's flax params are those of ``init`` at a fixed key, drawn with
+no init compile by ``tests/_flax_init.init_params``; they go through
 ``dcvc_tpu_torch.utils.convert.FlaxToTorch`` (the mapper the model
 converters use) into the port block with ``load_state_dict(strict=True)``,
 and both run the same numpy-seeded input. Tolerance: atol 2e-5 (f32
@@ -16,6 +17,7 @@ import torch
 from dcvc_tpu.layers import blocks as J
 from dcvc_tpu_torch.layers import blocks as T
 from dcvc_tpu_torch.utils.convert import FlaxToTorch
+from _flax_init import init_params
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -83,14 +85,9 @@ def test_block_matches_flax(name):
     rng = np.random.default_rng(0)
     x = rng.normal(0, 1, (1, 16, 20, 16)).astype(np.float32)   # NHWC
     jm = make_j()
-
-    def init_apply(key, inp):   # one compiled program, not two
-        params = jm.init(key, inp)
-        return params, jm.apply(params, inp)
-
-    params, ref = jax.jit(init_apply)(jax.random.PRNGKey(3), jnp.asarray(x))
-    ref = np.asarray(ref)
-    m = FlaxToTorch(jax.tree_util.tree_map(np.asarray, params))
+    params = init_params(jm, jnp.asarray(x), seed=3)
+    ref = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x)))
+    m = FlaxToTorch(params)
     mapping(m)
     tm = make_t(x.shape[-1])
     tm.load_state_dict(m.finish(), strict=True)

@@ -1,17 +1,19 @@
 """The port's video CLI (``python -m dcvc_tpu_torch.tools.test_video``)
 against the JAX package, on the CPU.
 
-The weights are made once, seeded, by the port and carried to the JAX
-package with ``dcvc_tpu/utils/port_dc.py`` (the converter its own CLI uses
-for published checkpoints); this skips the JAX models' ~60 s init, and
-``tests/test_torch_port_runner.py`` covers the other direction. They are
-saved as the JAX package's native ``.npz`` (``save_params``) and as a port
-``.pth``. The JAX ``run_sequence`` codes a 96x64 YUV420 sequence of 2
-frames (I, P) with them; the CLI, loading either file, must write the
-same ``.bin`` files byte for byte and a results JSON with the same keys.
-(Chained P-frames through the same runner are
-tests/test_torch_port_runner.py's subject; a third frame here cost a
-second P-frame program in both packages and tested nothing new.)
+The DC pair's weights are made once, seeded, by the port and carried to
+the JAX package's native ``.npz`` (``save_params``) with
+``dcvc_tpu/utils/port_dc.py`` (the converter its own CLI uses for
+published checkpoints), and saved as port ``.pth`` files. The port's own
+``run_sequence`` codes a 96x64 YUV420 sequence of 2 frames (I, P) with
+them in process; the CLI, loading either file, must write the same
+``.bin`` files byte for byte and a results JSON with the same keys. That
+runner's streams and summary keys are held against the JAX package's
+``run_sequence`` in ``tests/test_torch_port_runner.py``, and the
+full-width IntraNoAR / DMC streams against the JAX package's golden pins
+in ``test_torch_port_intra.py`` / ``test_torch_port_dmc.py``, so the DC
+case compiles no JAX program of its own. (Chained P-frames through the
+same runner are tests/test_torch_port_runner.py's subject.)
 
 The other generations' cases build the JAX side as the JAX CLI does
 (``dcvc_tpu/runner/adapters.py``, ``run_sequence`` with the CLI's padding
@@ -35,7 +37,6 @@ and intra period), from weights written once by the port:
 import json
 import os
 import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -44,13 +45,9 @@ import pytest
 import torch
 
 from dcvc_tpu.models.evc import make_evc as j_make_evc
-from dcvc_tpu.models.intra_dc import IntraNoAR as JIntraNoAR
 from dcvc_tpu.models.intra_hem import IntraNoARHem as JIntraNoARHem
-from dcvc_tpu.models.runtime import DmcRuntime as JDmcRuntime
 from dcvc_tpu.models.runtime import EvcCodecRuntime as JEvcCodecRuntime
 from dcvc_tpu.models.runtime import HemVideoRuntime as JHemVideoRuntime
-from dcvc_tpu.models.runtime import IntraDcRuntime as JIntraDcRuntime
-from dcvc_tpu.models.video_dc import DMC as JDMC
 from dcvc_tpu.models.video_hem import DMCHem as JDMCHem
 from dcvc_tpu.runner import adapters as jadapters
 from dcvc_tpu.runner import video as jvideo
@@ -59,11 +56,15 @@ from dcvc_tpu.utils.checkpoint import load_params, save_params
 from dcvc_tpu_torch.models.evc import build_evc
 from dcvc_tpu_torch.models.intra_dc import build_intra_dc
 from dcvc_tpu_torch.models.intra_hem import build_intra_hem
+from dcvc_tpu_torch.models.registry import build
 from dcvc_tpu_torch.models.video_dc import build_dmc
 from dcvc_tpu_torch.models.video_hem import build_dmc_hem
+from dcvc_tpu_torch.runner import adapters as tadapters
+from dcvc_tpu_torch.runner import video as tvideo
 from dcvc_tpu_torch.tools import test_image as image_cli
 from dcvc_tpu_torch.tools import test_video as cli
 from dcvc_tpu_torch.utils import color, png
+import _waits
 
 ROOT = Path(__file__).resolve().parent.parent
 H, W, FRAMES, Q = 64, 96, 2, 32
@@ -107,17 +108,17 @@ def case(tmp_path_factory):
     torch.save({"state_dict": {f"module.{k}": v for k, v in sd["p"].items()}},
                d / "p.pth.tar")
 
-    irt = JIntraDcRuntime(JIntraNoAR(), jp["i"])
-    prt = JDmcRuntime(JDMC(od_warp_mode="exact"), jp["p"])
+    irt = tadapters.adapt_i_runtime(build("intra_dc", seed=5, device="cpu")[1])
+    prt = tadapters.adapt_p_runtime(build("dmc_dc", seed=6, device="cpu")[1])
     irt.update(force=True)
     prt.update(force=True)
-    (spec,) = jvideo.load_dataset_config(cfg)
-    ecfg = jvideo.EvalConfig(intra_period=32, frame_num=FRAMES,
-                             write_stream=True, stream_path=str(d / "jax"),
+    (spec,) = tvideo.load_dataset_config(cfg)
+    ecfg = tvideo.EvalConfig(intra_period=32, frame_num=FRAMES,
+                             write_stream=True, stream_path=str(d / "ref"),
                              verbose=1)
-    summary = jvideo.run_sequence(irt, prt, spec, ecfg, q_index_i=Q,
+    summary = tvideo.run_sequence(irt, prt, spec, ecfg, q_index_i=Q,
                                   q_index_p=Q)
-    return {"dir": d, "jax_summary": summary, "jax_bins": _bins(d / "jax")}
+    return {"dir": d, "ref_summary": summary, "ref_bins": _bins(d / "ref")}
 
 
 def _bins(path):
@@ -134,25 +135,34 @@ def _args(d, tag, model_i, model_p):
 
 
 def test_cli_npz_subprocess_writes_the_jax_streams(case):
+    """The CLI in a process of its own, on the JAX package's ``.npz``
+    weights, writes the port runner's streams of the same weights and
+    sequence, byte for byte, and its results keys. No JAX program runs
+    here: the port's ``run_sequence`` is held to the JAX package's on the
+    96x64 DC pair (DMC seed 6, OD block warp, IntraNoAR at N = 32, I + 2 P)
+    by ``test_torch_port_runner.py::
+    test_write_stream_bins_identical_across_packages``, and this case's
+    full-width IntraNoAR and exact-warp DMC by the ``dc_intra`` / ``dc_p``
+    pins (``test_torch_port_intra.py``, ``test_torch_port_dmc.py``)."""
     d = case["dir"]
     env = dict(os.environ, OMP_NUM_THREADS="2")
-    r = subprocess.run([sys.executable, "-m", "dcvc_tpu_torch.tools.test_video",
-                        *_args(d, "npz", "i.npz", "p.npz")], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=600)
+    r = _waits.run([sys.executable, "-m", "dcvc_tpu_torch.tools.test_video",
+                    *_args(d, "npz", "i.npz", "p.npz")], 600, cwd=ROOT,
+                   env=env)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert _bins(d / "npz") == case["jax_bins"]
+    assert _bins(d / "npz") == case["ref_bins"]
     res = json.loads((d / "npz.json").read_text())
     assert list(res) == ["s1"] and list(res["s1"]) == ["rate_0"]
     summary = res["s1"]["rate_0"]
-    assert set(summary) == set(case["jax_summary"])
+    assert set(summary) == set(case["ref_summary"])
     assert summary["ave_all_frame_bits"] == pytest.approx(
-        case["jax_summary"]["ave_all_frame_bits"])
+        case["ref_summary"]["ave_all_frame_bits"])
 
 
 def test_cli_pth_in_process_codes_the_same_bytes(case):
     d = case["dir"]
     res = cli.main(_args(d, "pth", "i.pth", "p.pth.tar"))
-    assert _bins(d / "pth") == case["jax_bins"]
+    assert _bins(d / "pth") == case["ref_bins"]
     assert res["s1"]["rate_0"]["frame_num"] == FRAMES
 
 

@@ -11,12 +11,12 @@
 
 import ast
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 import pytest
 import torch
+import _waits
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "dcvc_tpu_torch"
@@ -63,8 +63,7 @@ def fresh_imports():
         f"print(json.dumps({{'pil': loaded(['PIL']), "
         f"'jax': loaded({FORBIDDEN!r}), "
         "'modules': len(sys.modules)}))\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+    res = _waits.run([sys.executable, "-c", code], 300, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     return json.loads(res.stdout.splitlines()[-1])
 

@@ -33,6 +33,7 @@ from dcvc_tpu.parallel import jobs as jjobs
 from dcvc_tpu_torch.parallel import jobs
 from dcvc_tpu_torch.tools import test_video as cli
 from dcvc_tpu_torch.utils import color
+from _waits import call_in_thread, communicate_all
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -178,13 +179,7 @@ def test_two_process_gloo_run_sharded(tmp_path):
         procs.append(subprocess.Popen(
             [sys.executable, "-c", _RANK.format(root=str(ROOT))], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    try:
-        outs = [p.communicate(timeout=120)[0].decode() for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    outs = communicate_all(procs, 120)
     for p, o in zip(procs, outs):
         assert p.returncode == 0, o[-3000:]
     merged = json.loads((out / "merged.json").read_text())
@@ -243,7 +238,8 @@ def test_cli_pool_writes_the_single_process_streams(pool_config, monkeypatch):
     d = pool_config
     monkeypatch.setenv("OMP_NUM_THREADS", "2")     # the spawned workers'
     one = cli.main(_pool_args(d, "one", 1))
-    two = cli.main(_pool_args(d, "two", 2))
+    two = call_in_thread(lambda: cli.main(_pool_args(d, "two", 2)), 300,
+                         "the --worker_num 2 pool")
     assert sorted(two) == sorted(SEQS)
     assert _untimed(two) == _untimed(one)
     assert json.loads((d / "two.json").read_text()).keys() == one.keys()

@@ -52,6 +52,7 @@ IMG_H, IMG_W = 56, 88        # edge-padded to 64 x 96 by both servers
 Q_IMAGE = (True, 1)          # (q_in_ckpt, q_index)
 Q_VIDEO = (False, 32)
 FRAMES = 3
+REQUEST_TIMEOUT_S = 120     # a client waits this long for a reply
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -144,6 +145,7 @@ def served(weights, tmp_path_factory):
     frames = [_u8(rng, H, W) for _ in range(FRAMES)]
     out = {"img": img, "frames": frames}
     with CodecClient(sock, connect_timeout=60) as c:
+        c.sock.settimeout(REQUEST_TIMEOUT_S)
         out["ping"] = c.ping()
         out["img_container"], out["img_recon"], out["img_bpp"] = \
             c.encode_image(img, q_index=Q_IMAGE[1], q_in_ckpt=Q_IMAGE[0],
@@ -294,6 +296,7 @@ def test_jax_client_drives_port_server_process(weights, tmp_path):
     try:
         img = _u8(np.random.default_rng(4), 40, 56)
         with JCodecClient(sock, connect_timeout=120.0) as c:
+            c.sock.settimeout(REQUEST_TIMEOUT_S)
             assert c.ping()["i_model"] == "intra_dc"
             container, recon, bpp = c.encode_image(img, q_index=2,
                                                    want_recon=True)
@@ -309,6 +312,7 @@ def test_jax_client_drives_port_server_process(weights, tmp_path):
         dying.sendall(b"\x00\x00\x01\x00{")
         dying.close()
         with JCodecClient(sock, connect_timeout=60.0) as c:
+            c.sock.settimeout(REQUEST_TIMEOUT_S)
             np.testing.assert_array_equal(c.decode_image(container), recon)
             c.shutdown()
         out, _ = proc.communicate(timeout=60)

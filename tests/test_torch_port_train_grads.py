@@ -4,11 +4,24 @@ For DMC (its one width, 64 x 64), DMCHem and CANFVCDmc (16 / 16 /
 24, as ``tests/test_train_fidelity.py`` builds DMCHem) and EVCIntra (16 /
 16 / 24 / 32, N = 32), seeded *port* weights go to JAX with the
 ``dcvc_tpu/utils/port_*.py`` converters (no JAX model init). One jitted
-JAX program per model computes ``jax.value_and_grad`` of the STE RD loss
-and the noise-mode forward (the rate surrogate, with both packages'
-``quant_noise`` replaced in this file by the same numpy draws); the port
-computes the same with ``backward``. JAX gradients come back in the port's
-names through ``dcvc_tpu_torch/utils/convert.py``.
+JAX program per model computes the STE RD loss and the noise-mode forward
+(the rate surrogate, with both packages' ``quant_noise`` replaced in this
+file by the same numpy draws), and the gradients:
+
+* of the whole model's loss, ``jax.value_and_grad``, for DMC, DMCHem and
+  EVCIntra; the port computes the same with ``backward``;
+* for CANFVCDmc, whose networks but one are DMCHem's
+  classes at DMCHem's widths (its CANF ladder is two of DMCHem's
+  contextual encoders, decoders and recon nets, joined by additions): the
+  DQ post-filter's VJP (``jax.vjp``, ``torch.autograd.grad``) of a seeded
+  random cotangent, at the input it got in the port's STE forward, as to
+  its parameters and its input. CANFVCDmc's whole-model backward was one
+  of the largest programs the port's tests compile, for no op that
+  DMCHem's whole-model gradient does not check; its STE loss and noise
+  forward stay whole-model.
+
+JAX gradients come back in the port's names through
+``dcvc_tpu_torch/utils/convert.py``.
 
 Both packages compute in float64 here (``jax.enable_x64``, the port module
 ``.double()``). In float32 the gradient of this loss is ill-conditioned at
@@ -24,10 +37,11 @@ implementations differ by an ulp; in this file both packages'
 forwards are held in ``test_torch_port_train_noise.py`` and the trainer
 file.
 
-Tolerances: loss rtol 1e-5; every parameter's gradient relative L2 gap
-<= 1e-3; noise-mode bpp parts and recon rtol 1e-5, atol 1e-5. The exact
-warp's gradient (float32) with flows that leave the frame: rtol 1e-4, atol
-1e-5 against the JAX package's naive VJP.
+Tolerances: loss rtol 1e-5; every parameter's (and the DQ input's)
+gradient relative L2 gap <= 1e-3; noise-mode bpp parts and recon rtol
+1e-5, atol 1e-5. The exact warp's gradient (float32) with flows
+that leave the frame: rtol 1e-4, atol 1e-5 against the JAX package's naive
+VJP.
 """
 
 import jax
@@ -136,31 +150,71 @@ def _jax_grads(grads, from_jax) -> dict:
     return {k: v.numpy() for k, v in sd.items()}
 
 
-def _ste_loss_and_noise(monkeypatch, tm, jm, params, jfwd, tfwd):
+def _port_module_vjp(tm, path, x, cot):
+    """Parameter and input gradients of ``sum(tm.<path>(x) * cot)``."""
+    x = x.detach().clone().requires_grad_(True)
+    names, params = zip(*tm.named_parameters())
+    g = torch.autograd.grad((tm.get_submodule(path)(x) * cot).sum(),
+                            list(params) + [x], allow_unused=True)
+    return ({n: (np.zeros(p.shape) if t is None else t.numpy())
+             for n, p, t in zip(names, params, g)}, g[-1].numpy())
+
+
+def _ste_loss_and_noise(monkeypatch, tm, jm, params, jfwd, tfwd,
+                        module=None):
     """``jfwd(params, mode)`` / ``tfwd(mode, generator)`` -> (x, out,
-    recon); one jitted JAX program gives the STE loss, its gradient and
-    the noise forward."""
+    recon). One jitted JAX program gives the STE loss, the noise forward
+    and the gradients: of the whole loss when ``module`` is None, else
+    the VJP of the submodule ``module = (port path, JAX path)`` at the
+    input it got in the port's STE forward."""
     calls = _patch_noise(monkeypatch)
     lam = jnp.asarray(LAMBDAS, jnp.float64)
+    tlam = torch.from_numpy(LAMBDAS).double()
 
     def jloss(p):
         x, out, recon = jfwd(p, "ste")
         return jstep.rd_loss(x, recon, out["bpp"], lam)
 
-    @jax.jit
-    def program(p):
-        loss, grads = jax.value_and_grad(jloss)(p)
-        _, out, recon = jfwd(p, "noise")
-        return loss, grads, out, recon
+    if module is None:
+        x, out, recon = tfwd("ste", None)
+        tl = tstep.rd_loss(x, recon, out["bpp"], tlam)
+        tm.zero_grad(set_to_none=True)
+        tl.backward()
+        tg = _port_grads(tm)
 
-    jl, jg, jout, jrecon = program(params)
+        @jax.jit
+        def program(p):
+            loss, grads = jax.value_and_grad(jloss)(p)
+            _, out, recon = jfwd(p, "noise")
+            return loss, grads, out, recon
+
+        jl, jg, jout, jrecon = program(params)
+    else:
+        path, jpath = module
+        seen = []
+        hook = tm.get_submodule(path).register_forward_pre_hook(
+            lambda _, args: seen.append(args[0]))
+        try:
+            with torch.no_grad():
+                x, out, recon = tfwd("ste", None)
+                tl = tstep.rd_loss(x, recon, out["bpp"], tlam)
+        finally:
+            hook.remove()
+        mx = seen[0]
+        cot = torch.from_numpy(np.random.default_rng(45).standard_normal(
+            tuple(mx.shape)))
+        tg = _port_module_vjp(tm, path, mx, cot)
+
+        @jax.jit
+        def program(p, mx, cot):
+            _, vjp = jax.vjp(lambda p, a: jm.apply(
+                p, a, method=lambda m, a: getattr(m, jpath)(a)), p, mx)
+            _, out, recon = jfwd(p, "noise")
+            return jloss(p), vjp(cot), out, recon
+
+        jl, jg, jout, jrecon = program(params, jnp.asarray(_nhwc(mx)),
+                                       jnp.asarray(_nhwc(cot)))
     assert jl.dtype == jnp.float64
-    x, out, recon = tfwd("ste", None)
-    tl = tstep.rd_loss(x, recon, out["bpp"],
-                       torch.from_numpy(LAMBDAS).double())
-    tm.zero_grad(set_to_none=True)
-    tl.backward()
-    tg = _port_grads(tm)
     with torch.no_grad():
         _, tout, trecon = tfwd("noise", torch.Generator().manual_seed(0))
     assert calls["port"] == calls["jax"] and len(calls["port"]) >= 2
@@ -256,17 +310,27 @@ NOISE_KEYS = {"dmc": ("bpp", "bpp_y", "bpp_z", "bpp_mv_y", "bpp_mv_z"),
               "evc": ("bpp", "bpp_y", "bpp_z")}
 
 
+# CANFVCDmc's one network that is not a DMCHem class: its DQ post-filter
+MODULE_VJP = {"canfvc_dmc": ("DQ", "dq")}
+
+
 @pytest.fixture(scope="module", params=list(BUILD))
 def model_run(request):
     """(name, results of one STE loss / gradient / noise-forward run)."""
     mp = pytest.MonkeyPatch()
+    module = MODULE_VJP.get(request.param)
     try:
         with jax.enable_x64(True):
             tm, jm, params, jfwd, tfwd, from_jax = BUILD[request.param](mp)
-            res = _ste_loss_and_noise(mp, tm, jm, params, jfwd, tfwd)
+            res = _ste_loss_and_noise(mp, tm, jm, params, jfwd, tfwd, module)
     finally:
         mp.undo()
-    res["grads"] = (res["grads"][0], _jax_grads(res["grads"][1], from_jax))
+    tg, jg = res["grads"]
+    if module is None:
+        res["grads"] = (tg, _jax_grads(jg, from_jax), None, None)
+    else:
+        res["grads"] = (tg[0], _jax_grads(jg[0], from_jax),
+                        tg[1].transpose(0, 2, 3, 1), np.asarray(jg[1]))
     return request.param, res
 
 
@@ -277,20 +341,26 @@ def test_ste_loss_matches_jax(model_run):
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
 
 
+def _rel(t, j):
+    den = np.linalg.norm(j)
+    num = np.linalg.norm(t - j)
+    return num / den if den > 0 else (0.0 if num == 0 else np.inf)
+
+
 def test_ste_gradients_match_jax(model_run):
     """Every parameter tensor's gradient within 1e-3 relative L2 of JAX's
-    (zero where neither package's loss reaches it)."""
+    (zero where neither package's loss reaches it): of the whole loss, or
+    of the one module's VJP, whose input's gradient is held the same way."""
     name, res = model_run
-    tg, jg = res["grads"]
+    tg, jg, tin, jin = res["grads"]
     assert set(tg) == set(jg), set(tg) ^ set(jg)
-    worst = (0.0, None)
-    for k, g in jg.items():
-        den = np.linalg.norm(g.astype(np.float64))
-        num = np.linalg.norm((tg[k] - g).astype(np.float64))
-        rel = num / den if den > 0 else (0.0 if num == 0 else np.inf)
-        worst = max(worst, (rel, k))
+    worst = max((_rel(tg[k], g), k) for k, g in jg.items())
     assert worst[0] <= GRAD_REL_L2, worst
-    assert sum(np.any(g != 0) for g in jg.values()) > len(jg) // 2
+    reached = sum(np.any(g != 0) for g in jg.values())
+    if tin is None:
+        assert reached > len(jg) // 2
+    else:
+        assert reached and _rel(tin, jin) <= GRAD_REL_L2, _rel(tin, jin)
 
 
 def test_noise_forward_matches_jax(model_run):
