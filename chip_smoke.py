@@ -176,7 +176,17 @@ no result line):
      the unsharded runtime on the same card: bytes equal or not, symbol
      and scale-index mismatches on the same input DPB, and the DPB gap.
      On one card every mesh is (1, 1): the halo code runs with only
-     global edges, and no collective moves a row;
+     global edges, and no collective moves a row. Then the sharded
+     train step on the same ranks (mesh_check's DxT:train spec: 1x1 on
+     one card, 4x1, 1x4 and 2x2 on four): leg 1, a float32 cascade-2 STE
+     make_dmc_train_step of full-width DMC with exact warps at 256 x 256,
+     global B = 4 (a warm-up, then 3 timed steps: step ms, peak GiB,
+     loss and bpp; the weights equal on every rank before and after the
+     updates; K1 and K2 counted, 0 each); leg 2, the float64 cascade-2
+     loss and gradients at 96 x 96 (128 x 128 at tile 4), B = the data
+     size, reduced over the mesh, against the same loss unsharded on rank
+     0's card (loss within 5e-4 relative, gradient relative L2 below
+     1e-3);
  34. one JSON line per kernel, then the result line.
 
 Every path (7 to 33) runs with the kernels' launch counts set to 0 just
@@ -3766,6 +3776,23 @@ def bf16_phase(results: dict):
                        "gens": _gens_bf16(results)}
 
 
+def _sharded_train_path(paths: dict, row: dict, n: int):
+    """Fold one rank's train row of mesh_check into its path: per-rank
+    leg 1 figures, rank 0's leg 2 parity, launches summed."""
+    shape = f"{row['mesh'][0]}x{row['mesh'][1]}"
+    name = "mesh_train" if n == 1 else f"mesh_train_{shape}"
+    path = paths.setdefault(name, {
+        "mesh": row["mesh"], "ranks": 0,
+        "launches": {"block_warp": 0, "band_copy": 0}, "leg1": [],
+        "leg2": None})
+    path["ranks"] += 1
+    for k, v in row["launches"].items():
+        path["launches"][k] += v
+    path["leg1"].append({"rank": row["rank"], **row["leg1"]})
+    if "grad_rel_l2" in row["leg2"]:
+        path["leg2"] = row["leg2"]
+
+
 def sharded_phase(results: dict):
     """Sharded P-frame coding on a mesh of every visible card, through
     ``python -m dcvc_tpu_torch.tools.mesh_check``'s ``run`` (one process
@@ -3776,11 +3803,17 @@ def sharded_phase(results: dict):
 
     torch.cuda.empty_cache()
     n = torch.cuda.device_count()
-    res = mesh_check.run(nproc=n, height=HEIGHT, width=WIDTH, timeout=600)
+    train = {1: ["1x1:train"], 4: ["4x1:train", "1x4:train",
+                                   "2x2:train"]}.get(n, [f"{n}x1:train"])
+    res = mesh_check.run(nproc=n, height=HEIGHT, width=WIDTH, timeout=900,
+                         meshes=mesh_check.default_meshes(n) + train)
     if res["failures"]:
         raise AssertionError("sharded: " + "; ".join(res["failures"]))
     paths = {}
     for row in res["rows"]:
+        if row["mode"] == "train":
+            _sharded_train_path(paths, row, n)
+            continue
         name = f"sharded_{row['mesh'][0]}x{row['mesh'][1]}_{row['mode']}"
         path = paths.setdefault(name, {
             "mesh": row["mesh"], "od_warp": row["od_warp"], "ranks": 0,
@@ -3791,6 +3824,10 @@ def sharded_phase(results: dict):
         for fr in row["frames"]:
             path["frames"].append({"rank": row["rank"], **fr})
     for name, path in paths.items():
+        if name.startswith("mesh_train"):
+            print(f"sharded {name} {json.dumps(path)} ({_card()})",
+                  flush=True)
+            continue
         fr = path["frames"]
         path["summary"] = {
             "encode_ms": [f["encode_ms"] for f in fr],

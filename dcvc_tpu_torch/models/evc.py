@@ -14,7 +14,8 @@ so a published EVC ``.pth`` loads with ``load_state_dict(strict=True)``.
 ``layers/blocks.py``; parameters stay f32. Under a tile context
 (``parallel/tile.py``) the hyperprior runs whole on the gathered rows of
 y and the prior parameters are cut to this rank's rows again; the bits of
-y are summed over the tile axis.
+y are summed over the tile axis, and those of z (whole on every rank)
+count once in the gradient.
 """
 
 from __future__ import annotations
@@ -147,12 +148,12 @@ class DualPriorCodec(nn.Module):
         if generator is not None:
             # training rate surrogate (HEM common_model.py:47-50)
             y_q = priors.quant_noise(y_res, generator)
-            z_hat = priors.quant_noise(z, generator)
+            z_hat = priors.quant_noise(z, generator, rows=False)
         bits_y = bits.y_gaussian_bits(y_q, torch.clamp(scales_hat, 0.11, 1e10))
         bits_z = bits.z_bits(z_hat, self.bit_estimator_z)
         pixel_num = tile.global_rows(x.shape[2]) * x.shape[3]
         bpp_y = tile.sum_tiles(bits_y.sum(dim=(1, 2, 3))) / pixel_num
-        bpp_z = bits_z.sum(dim=(1, 2, 3)) / pixel_num
+        bpp_z = tile.once(bits_z.sum(dim=(1, 2, 3))) / pixel_num
         return x_hat, bpp_y, bpp_z, pixel_num
 
     def _compress_latent(self, y, curr_q):

@@ -46,15 +46,15 @@ def quant_ste(x):
     return _QuantSTE.apply(x)
 
 
-def quant_noise(x, generator: torch.Generator):
+def quant_noise(x, generator: torch.Generator, rows: bool = True):
     """``x + U(-0.5, 0.5)``, drawn from ``generator`` on ``x``'s device: the
     training rate surrogate (reference ``add_noise``, DCVC-HEM
-    common_model.py:47-50)."""
+    common_model.py:47-50). Under a tile context the draws are the whole
+    tensor's, cut to this rank's slab (``tile.rand``; ``rows=False`` for
+    a tensor that holds every row)."""
     if generator is None:
         raise ValueError("quant_mode 'noise' needs a torch.Generator")
-    u = torch.rand(x.shape, generator=generator, dtype=x.dtype,
-                   device=x.device)
-    return x + (u - 0.5)
+    return x + (tile.rand(x, generator, rows) - 0.5)
 
 
 def resolve_quant(quant_mode: str):

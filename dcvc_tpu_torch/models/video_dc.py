@@ -18,7 +18,11 @@ Under a tile context (``parallel/tile.py``) every tensor is this rank's
 slab of H rows; the hyper paths (z at 1/64 of the frame, where the rows
 stop dividing) gather the latent's rows and run whole, replicated over the
 tile axis, and the prior parameters are cut to this rank's rows again;
-the per-sample bits of the latents are summed over the tile axis.
+the per-sample bits of the latents are summed over the tile axis, and
+the hyper latents' bits, whole on every rank, are counted once in the
+gradient (``tile.once``). Under ``quant_mode="noise"`` each rank draws the
+whole tensors' noise and keeps its slab (``priors.quant_noise``), so a
+mesh draws what one device draws.
 """
 
 from __future__ import annotations
@@ -363,8 +367,8 @@ class DMC(nn.Module):
             # while the recon path stays STE (HEM video_model.py:466-471)
             y_q = priors.quant_noise(y_res, generator)
             mv_y_q = priors.quant_noise(mv_y_res, generator)
-            z_hat = priors.quant_noise(z, generator)
-            mv_z_hat = priors.quant_noise(mv_z, generator)
+            z_hat = priors.quant_noise(z, generator, rows=False)
+            mv_z_hat = priors.quant_noise(mv_z, generator, rows=False)
         pixel_num = tile.global_rows(x.shape[2]) * x.shape[3]
         bpp = {}
         for k, b in (("bpp_y", bits.y_laplace_bits(y_q, scales_hat)),
@@ -373,7 +377,8 @@ class DMC(nn.Module):
         for k, b in (("bpp_z", bits.z_bits(z_hat, self.bit_estimator_z)),
                      ("bpp_mv_z", bits.z_bits(mv_z_hat,
                                               self.bit_estimator_z_mv))):
-            bpp[k] = b.sum(dim=(1, 2, 3)) / pixel_num
+            # whole on every tile rank: counted once in the gradient
+            bpp[k] = tile.once(b.sum(dim=(1, 2, 3))) / pixel_num
         total = bpp["bpp_y"] + bpp["bpp_z"] + bpp["bpp_mv_y"] + bpp["bpp_mv_z"]
         return {
             **bpp, "bpp": total, "bit": total.sum() * pixel_num,

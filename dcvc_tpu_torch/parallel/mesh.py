@@ -8,6 +8,8 @@ tensor) beside its placements; ``shard`` cuts a whole tensor into that
 slab with no communication and ``gather`` puts the slabs back together.
 The halo exchanges that XLA inserted between H tiles are written out in
 ``parallel/tile.py``, which the codec networks consult under a mesh.
+Training keeps the parameters replicated: ``reduce_gradients`` takes the
+place of GSPMD's gradient all-reduce.
 
 The device type is ``cuda`` (one NCCL rank per card) unless the caller
 asks for ``cpu`` (gloo); neither falls back on the other.
@@ -52,6 +54,12 @@ def make_mesh(n_devices: int | None = None, tile: int | None = None,
 def frame_sharding(mesh: DeviceMesh) -> tuple:
     """NCHW frames: batch over 'data', H (spatial tiles) over 'tile'."""
     return Shard(0), Shard(2)
+
+
+def clip_sharding(mesh: DeviceMesh) -> tuple:
+    """Training clips [B, T, 3, H, W]: batch over 'data', H over 'tile'
+    (the JAX package's ``P("data", None, "tile", None, None)``)."""
+    return Shard(0), Shard(3)
 
 
 def tile_sharding(mesh: DeviceMesh) -> tuple:
@@ -111,3 +119,35 @@ def gather(mesh: DeviceMesh, x: torch.Tensor, placements) -> torch.Tensor:
         if isinstance(p, Shard):
             x = unslab(x, p.dim, mesh.get_group(i), mesh.size(i))
     return x
+
+
+def reduce_gradients(mesh: DeviceMesh, params) -> None:
+    """Sum each parameter's gradient over 'tile' and average it over
+    'data', in place: one all-reduce over every rank (the mesh spans the
+    process group) of one flat buffer per dtype, divided by the data
+    size. Each rank's gradient is its partial one (``parallel/tile.py``);
+    a parameter this rank did not reach counts as a zero gradient, so
+    every rank's buffers have the same layout."""
+    data = mesh.size(AXES.index("data"))
+    by_dtype = {}
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        by_dtype.setdefault(p.grad.dtype, []).append(p)
+    for ps in by_dtype.values():
+        flat = torch.cat([p.grad.reshape(-1) for p in ps])
+        dist.all_reduce(flat)
+        flat /= data
+        for p, g in zip(ps, flat.split([p.numel() for p in ps])):
+            p.grad.copy_(g.view_as(p.grad))
+
+
+def mean_over(mesh: DeviceMesh | None, x: torch.Tensor) -> torch.Tensor:
+    """The mean of a detached value over every rank of ``mesh`` (``x``
+    itself without one): a data group's loss, the same on each of its
+    tile ranks, becomes the whole batch's."""
+    if mesh is None:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x)
+    return x / dist.get_world_size()

@@ -18,8 +18,26 @@ that read other rows than their own consult ``current()``:
   own rows again (``own_rows``); per-sample sums are ``sum_tiles``.
 
 With one rank on the tile axis the same code runs with only global edges.
-Nothing here is differentiable (inference only), and nothing falls back:
-a collective that fails raises, and rows that do not divide raise.
+Nothing falls back: a collective that fails raises, and rows that do not
+divide raise.
+
+Gradients (the transpose GSPMD inserted for the JAX package's training).
+Every tile rank holds the same loss, built from its own rows; each rank's
+backward gives its *partial* parameter gradient, and the sum over the
+tile axis is the gradient of the whole frame (``mesh.reduce_gradients``
+takes that sum). Under this convention:
+
+* ``halo`` sends each halo row's gradient back to the rank that owns the
+  row, which adds it onto its edge rows; zero-fill rows drop;
+* ``gather_rows`` sums every rank's gradient of the whole tensor over the
+  tile axis and keeps this rank's rows; ``own_rows`` passes its rows'
+  gradient back with zeros elsewhere (a plain slice, no communication);
+* ``sum_tiles`` passes the gradient through unchanged: each rank's own
+  rows enter the replicated sum once;
+* ``once`` marks a term computed whole on every tile rank that enters the
+  loss (a hyper latent's bits, MS-SSIM on gathered rows): it passes
+  1 / tile of the gradient back, so the sum over the tile axis counts the
+  term once.
 """
 
 from __future__ import annotations
@@ -36,13 +54,96 @@ from dcvc_tpu_torch.parallel.mesh import all_gather_parts, slab, unslab
 _STATE = threading.local()
 
 
+class _GatherRows(torch.autograd.Function):
+    """All-gather of the H slabs; backward: every rank's gradient of the
+    whole tensor summed over the tile axis, this rank's rows kept."""
+
+    @staticmethod
+    def forward(fctx, x, tctx):
+        fctx.tctx = tctx
+        return unslab(x, 2, tctx.group, tctx.size)
+
+    @staticmethod
+    def backward(fctx, g):
+        t = fctx.tctx
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=t.group)
+        return slab(g, 2, t.rank, t.size).contiguous(), None
+
+
+class _SumTiles(torch.autograd.Function):
+    """All-reduce over the tile axis; backward: the identity."""
+
+    @staticmethod
+    def forward(fctx, x, tctx):
+        x = x.clone()
+        dist.all_reduce(x, group=tctx.group)
+        return x
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+class _Once(torch.autograd.Function):
+    """The identity; backward: 1 / ``n`` of the gradient."""
+
+    @staticmethod
+    def forward(fctx, x, n):
+        fctx.n = n
+        return x.clone()
+
+    @staticmethod
+    def backward(fctx, g):
+        return g / fctx.n, None
+
+
+class _Halo(torch.autograd.Function):
+    """``x`` with the last ``top`` rows of the rank above and the first
+    ``bottom`` rows of the rank below (none past a global edge); both
+    widths at most a slab. Backward: the halo rows' gradients go back to
+    their owners, which add them onto their edge rows."""
+
+    @staticmethod
+    def forward(fctx, x, tctx, top, bottom):
+        r, n, h = tctx.rank, tctx.size, x.shape[2]
+        # every rank sends its first `bottom` and last `top` rows
+        parts = all_gather_parts(torch.cat(
+            [x[:, :, :bottom], x[:, :, h - top:]], dim=2), tctx.group, n)
+        up = parts[r - 1][:, :, bottom:] if r > 0 else x[:, :, :0]
+        down = parts[r + 1][:, :, :bottom] if r < n - 1 else x[:, :, :0]
+        fctx.tctx, fctx.top, fctx.bottom = tctx, top, bottom
+        fctx.up, fctx.h = up.shape[2], h
+        return torch.cat([up, x, down], dim=2)
+
+    @staticmethod
+    def backward(fctx, g):
+        t, top, bottom, up, h = (fctx.tctx, fctx.top, fctx.bottom, fctx.up,
+                                 fctx.h)
+        r, n = t.rank, t.size
+        gx = g[:, :, up:up + h].clone()
+        # every rank sends the gradient of the rows it took from above
+        # (zeros at the top edge) and from below (zeros at the bottom edge)
+        send = g.new_zeros(g.shape[:2] + (top + bottom,) + g.shape[3:])
+        send[:, :, top - up:top] = g[:, :, :up]
+        send[:, :, top:top + g.shape[2] - up - h] = g[:, :, up + h:]
+        parts = all_gather_parts(send, t.group, n)
+        if r < n - 1:                   # the rank below took my last rows
+            gx[:, :, h - top:] += parts[r + 1][:, :, :top]
+        if r > 0:                       # the rank above took my first rows
+            gx[:, :, :bottom] += parts[r - 1][:, :, top:]
+        return gx, None, None, None
+
+
 class TileContext:
     """The tile subgroup, the frame's global H and this rank's place."""
 
-    def __init__(self, group, rank: int, size: int, height: int):
+    def __init__(self, group, rank: int, size: int, height: int,
+                 data_rank: int = 0, data_size: int = 1):
         if height % size:
             raise ValueError(f"{height} rows do not divide over {size} tiles")
         self.group, self.rank, self.size = group, rank, size
+        self.data_rank, self.data_size = data_rank, data_size
         self.height = height
         self.rows = height // size          # this rank's rows, frame scale
 
@@ -60,7 +161,7 @@ class TileContext:
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """The whole tensor from every rank's slab ``x`` (NCHW, H)."""
-        return unslab(x, 2, self.group, self.size)
+        return x if self.size == 1 else _GatherRows.apply(x, self)
 
     def own_rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's slab of a whole (replicated) tensor ``x``."""
@@ -68,11 +169,12 @@ class TileContext:
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the ranks of the tile axis."""
-        if self.size == 1:
-            return x
-        x = x.clone()
-        dist.all_reduce(x, group=self.group)
-        return x
+        return x if self.size == 1 else _SumTiles.apply(x, self)
+
+    def once(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, computed whole on every rank, counted once by the sum of
+        the ranks' gradients: 1 / tile of the gradient passes back."""
+        return x if self.size == 1 else _Once.apply(x, self.size)
 
     def halo(self, x: torch.Tensor, top: int, bottom: int,
              fill: str | None = "zeros") -> torch.Tensor:
@@ -86,26 +188,19 @@ class TileContext:
         h = x.shape[2]
         off = self.rank * h
         if self.size == 1:
-            up = down = x[:, :, :0]
+            mid = x
         elif top <= h and bottom <= h:
-            # every rank sends its first `bottom` and last `top` rows
-            parts = all_gather_parts(torch.cat(
-                [x[:, :, :bottom], x[:, :, h - top:]], dim=2), self.group,
-                self.size)
-            up = (parts[self.rank - 1][:, :, bottom:] if self.rank > 0
-                  else x[:, :, :0])
-            down = (parts[self.rank + 1][:, :, :bottom]
-                    if self.rank < self.size - 1 else x[:, :, :0])
+            mid = _Halo.apply(x, self, top, bottom)
         else:                               # a halo wider than a slab
             whole = self.gather_rows(x)
-            up = whole[:, :, max(off - top, 0):off]
-            down = whole[:, :, off + h:off + h + bottom]
-        mid = torch.cat([up, x, down], dim=2)
+            mid = whole[:, :, max(off - top, 0):off + h + bottom]
+        up = min(top, off) if self.size > 1 else 0
+        down = mid.shape[2] - h - up
         if fill is None:
             return mid
         if fill != "zeros":
             raise ValueError(f"unknown halo fill {fill!r}")
-        return F.pad(mid, (0, 0, top - up.shape[2], bottom - down.shape[2]))
+        return F.pad(mid, (0, 0, top - up, bottom - down))
 
     def conv_rows(self, x, kernel: int, stride: int, padding: int, conv):
         """A convolution over H (``kernel``, ``stride``, zero ``padding``)
@@ -141,10 +236,18 @@ def current() -> TileContext | None:
     return getattr(_STATE, "ctx", None)
 
 
-def _enter(ctx):
+@contextlib.contextmanager
+def use(ctx: TileContext | None):
+    """Run the ops inside under ``ctx`` (None: no context). A function
+    that autograd recomputes in backward (``torch.utils.checkpoint``), on
+    another thread or after its caller's ``context`` has exited, enters
+    the context it was made under with this."""
     prev = current()
     _STATE.ctx = ctx
-    return prev
+    try:
+        yield ctx
+    finally:
+        _STATE.ctx = prev
 
 
 @contextlib.contextmanager
@@ -155,23 +258,17 @@ def context(mesh, height: int):
         yield None
         return
     ctx = TileContext(mesh.get_group("tile"), mesh.get_local_rank("tile"),
-                      mesh.size(mesh.mesh_dim_names.index("tile")), height)
-    prev = _enter(ctx)
-    try:
+                      mesh.size(mesh.mesh_dim_names.index("tile")), height,
+                      mesh.get_local_rank("data"),
+                      mesh.size(mesh.mesh_dim_names.index("data")))
+    with use(ctx):
         yield ctx
-    finally:
-        _STATE.ctx = prev
 
 
-@contextlib.contextmanager
 def whole():
     """Suspend the context: the ops inside run on whole tensors (rows
     gathered with ``gather_rows``), replicated over the tile axis."""
-    prev = _enter(None)
-    try:
-        yield
-    finally:
-        _STATE.ctx = prev
+    return use(None)
 
 
 def tiles(mesh) -> int:
@@ -192,6 +289,31 @@ def own_rows(x: torch.Tensor) -> torch.Tensor:
 def sum_tiles(x: torch.Tensor) -> torch.Tensor:
     ctx = current()
     return x if ctx is None else ctx.sum(x)
+
+
+def once(x: torch.Tensor) -> torch.Tensor:
+    """A term computed whole on every tile rank, counted once in the
+    gradient (``TileContext.once``); ``x`` itself without a context."""
+    ctx = current()
+    return x if ctx is None else ctx.once(x)
+
+
+def rand(x: torch.Tensor, generator: torch.Generator,
+         rows: bool = True) -> torch.Tensor:
+    """U[0, 1) draws in ``x``'s shape, dtype and device from
+    ``generator``. Under a context the whole tensor's draws are made and
+    this rank's slab is kept: the batch over the data axis and, with
+    ``rows``, H over the tile axis (``rows=False``: ``x`` holds every row,
+    as a hyper latent does), so a mesh draws what one device draws."""
+    ctx = current()
+    kw = {"generator": generator, "dtype": x.dtype, "device": x.device}
+    if ctx is None:
+        return torch.rand(x.shape, **kw)
+    B, C, H, W = x.shape
+    u = torch.rand((B * ctx.data_size, C, H * ctx.size if rows else H, W),
+                   **kw)
+    u = slab(u, 0, ctx.data_rank, ctx.data_size)
+    return (slab(u, 2, ctx.rank, ctx.size) if rows else u).contiguous()
 
 
 def global_rows(rows: int) -> int:

@@ -9,6 +9,15 @@ and AdamW (:605-631).
 Frames cross the API as NCHW tensors: ``x`` [B, 3, H, W], a clip
 [B, T, 3, H, W]. The modules hold their parameters, so a step updates them
 in place and returns ``(loss, aux)``.
+
+On a (data, tile) mesh (``parallel/mesh.py``; DMC's step) the clip and
+the per-sample vectors are this rank's slabs (``clip_sharding``: B over
+'data', H over 'tile'; ``scalar_sharding``), the parameters are
+replicated, and the frame runs under the tile context
+(``parallel/tile.py``). The loss each rank holds is its data group's;
+``mesh.reduce_gradients`` sums the partial gradients over 'tile' and
+averages them over 'data', so every rank takes the same update, that of
+the unsharded step on the whole batch.
 """
 
 from __future__ import annotations
@@ -19,6 +28,8 @@ import torch.utils.checkpoint
 
 from ..models.intra_dc import IntraNoAR
 from ..ops.ms_ssim import ms_ssim_distortion
+from ..parallel import mesh as M
+from ..parallel import tile
 
 # lambda per q_level (train_CANFVC_DMC.py:184-186)
 TRAIN_LAMBDAS = (85.0, 170.0, 380.0, 840.0)
@@ -87,11 +98,19 @@ def rd_loss(x, x_hat, bpp, lambdas, distortion: str = "mse"):
     ``"mse"`` is the reference's sum over CHW / (H * W) (HEM
     video_model.py:464, 3x the all-axis mean), so the fork's lambdas give
     the same trade-off; ``"ssim"`` is the fork's --ssim criterion,
-    (1 - MS-SSIM) / 64 (train_CANFVC_DMC.py:74, 199-200)."""
+    (1 - MS-SSIM) / 64 (train_CANFVC_DMC.py:74, 199-200).
+
+    Under a tile context ``x`` and ``x_hat`` are this rank's rows: the
+    squared error is summed over the tile axis, and MS-SSIM runs whole on
+    the gathered rows, counted once (``tile.once``)."""
     if distortion == "ssim":
-        d = ms_ssim_distortion(x, x_hat)
+        xg, x_hat_g = tile.gather_rows(x), tile.gather_rows(x_hat)
+        with tile.whole():
+            d = ms_ssim_distortion(xg, x_hat_g)
+        d = tile.once(d)
     else:
-        d = ((x - x_hat) ** 2).sum(dim=(1, 2, 3)) / (x.shape[2] * x.shape[3])
+        sse = tile.sum_tiles(((x - x_hat) ** 2).sum(dim=(1, 2, 3)))
+        d = sse / (tile.global_rows(x.shape[2]) * x.shape[3])
     return (lambdas * d + bpp).mean()
 
 
@@ -146,7 +165,10 @@ def cascade_loss(apply_frame, clip, lambdas, cascade_frames: int,
     between frames; ``remat`` recomputes each frame's activations in
     backward. Under ``"noise"`` frame ``t`` draws from a generator seeded
     ``fold_in(seed, t)`` and made inside the frame's function, so a
-    rematerialised frame draws the same noise again."""
+    rematerialised frame draws the same noise again. The frame's function
+    also enters the tile context it was made under: the recomputation
+    runs in backward, outside the caller's ``tile.context``."""
+    ctx = tile.current()
     dpb = {"ref_frame": clip[:, 0].contiguous(), "ref_feature": None,
            "ref_mv_feature": None, "ref_y": None, "ref_mv_y": None}
     total = 0.0
@@ -155,9 +177,10 @@ def cascade_loss(apply_frame, clip, lambdas, cascade_frames: int,
         x = clip[:, t].contiguous()
 
         def frame(x, dpb, t=t):
-            gen = (noise_generator(fold_in(seed, t), x.device)
-                   if quant_mode == "noise" else None)
-            return apply_frame(x, dpb, t, quant_mode, gen)
+            with tile.use(ctx):
+                gen = (noise_generator(fold_in(seed, t), x.device)
+                       if quant_mode == "noise" else None)
+                return apply_frame(x, dpb, t, quant_mode, gen)
 
         if remat:
             # recompute the frame's activations in backward (memory for
@@ -179,18 +202,22 @@ def cascade_loss(apply_frame, clip, lambdas, cascade_frames: int,
 def make_dmc_cascade_loss(module, cascade_frames: int = 2,
                           detach_between_frames: bool = True,
                           remat: bool = False, quant_mode: str = "ste",
-                          distortion: str = "mse"):
+                          distortion: str = "mse", mesh=None):
     """The cascaded RD loss of :func:`make_dmc_train_step` for DMC:
     ``loss_fn(clip, q_scales, lambdas, seed=0)`` -> ``(loss, aux)``, the
-    graph kept for ``backward``."""
+    graph kept for ``backward``. With ``mesh`` the arguments are this
+    rank's slabs, the loss is this rank's data group's, and ``aux`` holds
+    the loss and bpp of the whole batch (means over the mesh)."""
 
     def loss_fn(clip, q_scales, lambdas, seed: int = 0):
-        loss, bpp = cascade_loss(
-            lambda x, dpb, t, qm, gen: module(x, dpb, q_scales, t, qm,
-                                              generator=gen),
-            clip, lambdas, cascade_frames, detach_between_frames, remat,
-            quant_mode, distortion, seed)
-        return loss, {"bpp": bpp, "loss": loss.detach()}
+        with tile.context(mesh, clip.shape[3] * tile.tiles(mesh)):
+            loss, bpp = cascade_loss(
+                lambda x, dpb, t, qm, gen: module(x, dpb, q_scales, t, qm,
+                                                  generator=gen),
+                clip, lambdas, cascade_frames, detach_between_frames, remat,
+                quant_mode, distortion, seed)
+        return loss, {"bpp": M.mean_over(mesh, bpp),
+                      "loss": M.mean_over(mesh, loss.detach())}
 
     return loss_fn
 
@@ -198,7 +225,7 @@ def make_dmc_cascade_loss(module, cascade_frames: int = 2,
 def make_dmc_train_step(module, optimizer, cascade_frames: int = 2,
                         detach_between_frames: bool = True,
                         remat: bool = False, quant_mode: str = "ste",
-                        distortion: str = "mse"):
+                        distortion: str = "mse", mesh=None):
     """Cascaded P-frame step of DMC over a clip [B, T, 3, H, W]:
     ``train_step(clip, q_scales, lambdas, seed=0)`` -> ``(loss, aux)``.
 
@@ -206,15 +233,21 @@ def make_dmc_train_step(module, optimizer, cascade_frames: int = 2,
     are coded in turn with the DPB threaded through, and the loss averages
     their RD terms. ``detach_between_frames`` cuts the gradient between
     frames (the fork's pre-fullgop stages, :190-191); ``remat`` recomputes
-    each frame's activations in backward."""
+    each frame's activations in backward. With ``mesh`` (replicated
+    parameters, this rank's slabs of ``clip``, ``q_scales`` and
+    ``lambdas``) the gradients are reduced over the mesh before the
+    optimizer's clip and update, and the returned loss and bpp are the
+    whole batch's."""
     loss_fn = make_dmc_cascade_loss(module, cascade_frames,
                                     detach_between_frames, remat, quant_mode,
-                                    distortion)
+                                    distortion, mesh)
 
     def train_step(clip, q_scales, lambdas, seed: int = 0):
         optimizer.zero_grad()
         loss, aux = loss_fn(clip, q_scales, lambdas, seed)
         loss.backward()
+        if mesh is not None:
+            M.reduce_gradients(mesh, optimizer.params)
         optimizer.step()
         return aux["loss"], aux
 

@@ -9,6 +9,13 @@ each case's arrays and saves them to ``WORKDIR/results.pt`` for the
 parent, which holds them against JAX and the port's unsharded runs. The
 dc_p pin's weights and frames arrive in ``WORKDIR/coding.pt``, written by
 the parent while the first cases run.
+
+The train cases (last, with autograd) hold the tile primitives'
+backwards against autograd of the whole tensor on every rank, and DMC's
+float64 sharded loss, gradients and update against the port's unsharded
+ones, which the parent writes to ``WORKDIR/train_ref.pt`` (gradients are
+19.8 M float64 values a set, so rank 0 compares them and sends back only
+the gaps).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from datetime import timedelta
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
@@ -35,6 +43,8 @@ from dcvc_tpu_torch.models.video_dc import build_dmc  # noqa: E402
 from dcvc_tpu_torch.ops import warp  # noqa: E402
 from dcvc_tpu_torch.parallel import mesh as M  # noqa: E402
 from dcvc_tpu_torch.parallel import tile  # noqa: E402
+from dcvc_tpu_torch.training import step as S  # noqa: E402
+from dcvc_tpu_torch.training.trainer import build_train_module  # noqa: E402
 from dcvc_tpu_torch.utils import stream  # noqa: E402
 
 EVC_CH, EVC_N, EVC_SEED = (8, 8, 16, 32), 32, 31
@@ -53,6 +63,17 @@ PRIMITIVES = (
     "up2_bf16", "down2", "down2_bf16", "flow_warp", "flow_warp_bf16",
     "tile_warp", "phase_masks", "checkerboards", "halo_zeros_wide",
     "gather_own_rows", "sum_tiles",
+)
+
+TRAIN_SEED, NOISE_SEED = 23, 5
+TRAIN_LAMBDAS = (85.0, 380.0)       # test_sharding_dmc.py:83
+TRAIN_LR = 1e-4
+# tile primitives (and ops built on them) whose gradients under tile 4
+# are held against autograd of the whole tensor
+TRAIN_PRIMITIVES = (
+    "halo_zeros", "halo_none", "halo_one_sided", "halo_wide", "gather_rows",
+    "own_rows", "sum_tiles", "once", "conv_k3_s1", "conv_k3_s2",
+    "conv_k7_s1_wide_halo", "conv_transpose", "up2", "flow_warp",
 )
 
 
@@ -220,8 +241,8 @@ def case_dmc_forward(out, m22):
         out["block_under_tile"] = str(e)
 
 
-def _wait_coding(workdir):
-    path = os.path.join(workdir, "coding.pt")
+def _wait_for(workdir, name):
+    path = os.path.join(workdir, name)
     deadline = time.time() + WAIT_S
     while not os.path.exists(path):
         if time.time() > deadline:
@@ -234,7 +255,7 @@ def case_coding(out, m22, m14, workdir):
     """The dc_p pin's frame coded on tile 2 (data 2 x tile 2, B = 1
     replicated over data) and tile 4 (data 1 x tile 4), its stream decoded
     by the sharded decoder; then a 256 x 256 frame on tile 4."""
-    inp = _wait_coding(workdir)
+    inp = _wait_for(workdir, "coding.pt")
     module = build_dmc(device="cpu", od_warp_mode="exact")
     module.load_state_dict(inp["sd"], strict=True)
     for name, mesh in zip((n for n, _ in CODINGS), (m22, m14)):
@@ -258,6 +279,306 @@ def case_coding(out, m22, m14, workdir):
     out["coding_256_tile4"] = comp["bit_stream"]
 
 
+def train_module():
+    """The float64 DMC of the train cases: seeded, exact warps."""
+    return build_train_module("dmc_dc", seed=TRAIN_SEED,
+                              device="cpu").double()
+
+
+def train_inputs():
+    """``dmc_forward_inputs`` as a float64 clip [2, 2, 3, 128, 64]
+    (reference, frame), unit q scales and per-sample lambdas."""
+    x, ref = dmc_forward_inputs()
+    clip = torch.stack([ref, x], dim=1).double()
+    qs = {k: torch.ones(2, 1, 1, 1, dtype=torch.float64)
+          for k in ("mv_enc", "mv_dec", "y_enc", "y_dec")}
+    return clip, qs, torch.tensor(TRAIN_LAMBDAS, dtype=torch.float64)
+
+
+def _grads(module) -> dict:
+    return {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+            for n, p in module.named_parameters()}
+
+
+def loss_and_grads(module, mesh, clip, qs, lam, **kw):
+    """DMC's cascade-1 loss (``make_dmc_cascade_loss``; ``kw``: remat,
+    quant_mode, distortion) and its gradients, reduced over ``mesh``:
+    (loss, bpp, {name: gradient})."""
+    module.zero_grad(set_to_none=True)
+    loss, aux = S.make_dmc_cascade_loss(module, 1, mesh=mesh, **kw)(
+        clip, qs, lam, seed=NOISE_SEED)
+    loss.backward()
+    if mesh is not None:
+        M.reduce_gradients(mesh, module.parameters())
+    return float(aux["loss"]), float(aux["bpp"]), _grads(module)
+
+
+def train_step(module, mesh, clip, qs, lam):
+    """One ``make_dmc_train_step`` update (cascade 1, STE, MSE, lr
+    TRAIN_LR): (loss, bpp, the gradients it stepped on, before the
+    clip)."""
+    opt = S.ClipAdamW(module.parameters(), lr=TRAIN_LR)
+    seen = {}
+    step = opt.step
+
+    def record():
+        seen.update(_grads(module))
+        step()
+
+    opt.step = record
+    loss, aux = S.make_dmc_train_step(module, opt, 1, mesh=mesh)(
+        clip, qs, lam)
+    return float(loss), float(aux["bpp"]), seen
+
+
+def ssim_inputs():
+    """A float64 B = 2 frame pair at 192 x 192 (MS-SSIM needs more than
+    160 px a side) and a seeded 3 x 3 convolution giving the recon."""
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.random((2, 3, 192, 192)))
+    y = (x + 0.1 * torch.from_numpy(rng.standard_normal(x.shape))).clamp(
+        0, 1)
+    torch.manual_seed(19)
+    net = blocks.Conv2d(3, 3, 3, padding=1).double()
+    return x, y, net
+
+
+def ssim_loss_and_grads(mesh, x, y, net, lam):
+    """``rd_loss(..., "ssim")`` of ``x`` against ``x + net(y)`` (bpp 0)
+    under ``mesh``'s tile context: (loss, gradients of net's weights and of
+    y)."""
+    net.zero_grad(set_to_none=True)
+    y = y.detach().clone().requires_grad_(True)
+    with tile.context(mesh, tile.tiles(mesh) * x.shape[2]):
+        loss = S.rd_loss(x, x + net(y), torch.zeros_like(lam), lam, "ssim")
+    loss.backward()
+    if mesh is not None:
+        M.reduce_gradients(mesh, net.parameters())
+    return (float(loss.detach()),
+            {n: p.grad.clone() for n, p in net.named_parameters()}, y.grad)
+
+
+def _rel_gaps(got: dict, want: dict) -> dict:
+    """Per-tensor relative L2 gap of ``got`` to ``want`` (0 where both are
+    zero)."""
+    res = {}
+    for k, w in want.items():
+        num = float(torch.linalg.vector_norm(got[k] - w))
+        den = float(torch.linalg.vector_norm(w))
+        res[k] = num / den if den else (0.0 if not num else float("inf"))
+    return res
+
+
+def _worst(gaps: dict):
+    return max((v, k) for k, v in gaps.items())
+
+
+def _primitive_grad_gaps(m14) -> dict:
+    """Each primitive's (and op's) input and parameter gradients on tile
+    4 against autograd of the whole tensor, float64; the relative max-abs
+    gap, the worst over the ranks. Each rank's loss is its share of the
+    whole loss (a seeded cotangent per rank), except ``sum_tiles`` and
+    ``once``, whose loss every rank holds whole."""
+    H, n = 32, m14.size(1)
+    g = torch.Generator().manual_seed(13)
+    X = torch.rand(2, 3, H, 12, generator=g, dtype=torch.float64)
+    flow = torch.randn(2, 2, H, 12, generator=g, dtype=torch.float64) * 5
+
+    def cot(r, shape):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(
+            100 + r), dtype=torch.float64)
+
+    def gap(a, b):
+        if a is None:                   # no gradient came back
+            return float("inf")
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_(True)
+
+    res = {}
+    with tile.context(m14, H) as ctx:
+        r, h = ctx.rank, H // n
+        own = slice(r * h, (r + 1) * h)
+
+        def halo_case(Xw, top, bottom, fill):
+            Hw, hw = Xw.shape[2], Xw.shape[2] // n
+
+            def whole_mid(Z, q):
+                lo, hi = q * hw - top, (q + 1) * hw + bottom
+                if fill == "zeros":
+                    return F.pad(Z, (0, 0, top, bottom))[:, :, lo + top:
+                                                         hi + top]
+                return Z[:, :, max(lo, 0):min(hi, Hw)]
+
+            Z = leaf(Xw)
+            sum((whole_mid(Z, q) * cot(q, whole_mid(Z, q).shape)).sum()
+                for q in range(n)).backward()
+            x = leaf(Xw[:, :, r * hw:(r + 1) * hw])
+            mid = ctx.halo(x, top, bottom, fill)
+            (mid * cot(r, mid.shape)).sum().backward()
+            return gap(x.grad, Z.grad[:, :, r * hw:(r + 1) * hw])
+
+        def gather_case():
+            Z = leaf(X)
+            sum((Z * cot(q, Z.shape)).sum() for q in range(n)).backward()
+            x = leaf(X[:, :, own])
+            (tile.gather_rows(x) * cot(r, X.shape)).sum().backward()
+            return gap(x.grad, Z.grad[:, :, own])
+
+        def own_case():
+            want = torch.cat([cot(q, X[:, :, own].shape)
+                              for q in range(n)], 2)
+            Z = leaf(X)
+            (tile.own_rows(Z) * cot(r, X[:, :, own].shape)).sum().backward()
+            dist.all_reduce(Z.grad, group=ctx.group)
+            return gap(Z.grad, want)
+
+        Wt = cot(-1, X.shape)
+
+        def sum_case():
+            x = leaf(X[:, :, own])
+            (3.0 * tile.sum_tiles((x * Wt[:, :, own]).sum().view(1))).sum(
+                ).backward()
+            return gap(x.grad, 3.0 * Wt[:, :, own])
+
+        def once_case():
+            Z = leaf(X)
+            tile.once((Z * Wt).sum().view(1)).sum().backward()
+            dist.all_reduce(Z.grad, group=ctx.group)
+            return gap(Z.grad, Wt)
+
+        def op_case(make, inputs):
+            """``make()`` -> (module or None, op of the inputs); the
+            whole-tensor loss sum(op(X) * C) against each rank's share
+            sum(op(x) * own rows of C)."""
+            mod, op = make()
+            Hs = inputs[0].shape[2]
+            hs = Hs // n
+            with tile.whole():
+                Zs = [leaf(t) for t in inputs]
+                y = op(*Zs)
+                C = cot(-2, y.shape)
+                (y * C).sum().backward()
+            want = [z.grad for z in Zs] + ([p.grad.clone() for p in
+                                            mod.parameters()] if mod else [])
+            if mod:
+                mod.zero_grad(set_to_none=True)
+            xs = [leaf(t[:, :, r * hs:(r + 1) * hs]) for t in inputs]
+            y = op(*xs)
+            (y * tile.own_rows(C)).sum().backward()
+            got = [x.grad for x in xs]
+            want = [w[:, :, r * hs:(r + 1) * hs] for w in want[:len(xs)]] \
+                + want[len(xs):]
+            if mod:
+                for p in mod.parameters():
+                    dist.all_reduce(p.grad, group=ctx.group)
+                got += [p.grad for p in mod.parameters()]
+            return max(gap(a, b) for a, b in zip(got, want))
+
+        def conv(k, s, transpose=False):
+            def make():
+                torch.manual_seed(k * 10 + s)
+                c = (blocks.ConvTranspose2d(3, 4, k, stride=s, padding=1,
+                                            output_padding=1) if transpose
+                     else blocks.Conv2d(3, 4, k, stride=s,
+                                        padding=(k - 1) // 2)).double()
+                return c, c
+            return make
+
+        def wide_conv_case():
+            with tile.context(m14, 8):
+                return op_case(conv(7, 1), [X[:, :, :8]])
+
+        cases = {
+            "halo_zeros": lambda: halo_case(X, 1, 1, "zeros"),
+            "halo_none": lambda: halo_case(X, 1, 1, None),
+            "halo_one_sided": lambda: halo_case(X, 2, 0, "zeros"),
+            "halo_wide": lambda: halo_case(X[:, :, :8], 3, 3, "zeros"),
+            "gather_rows": gather_case, "own_rows": own_case,
+            "sum_tiles": sum_case, "once": once_case,
+            "conv_k3_s1": lambda: op_case(conv(3, 1), [X]),
+            "conv_k3_s2": lambda: op_case(conv(3, 2), [X]),
+            "conv_k7_s1_wide_halo": wide_conv_case,
+            "conv_transpose": lambda: op_case(conv(3, 2, True), [X]),
+            "up2": lambda: op_case(lambda: (None, warp.bilinear_up2), [X]),
+            "flow_warp": lambda: op_case(lambda: (None, warp.flow_warp),
+                                         [X, flow]),
+        }
+        errors = {}
+        for name in TRAIN_PRIMITIVES:
+            try:
+                res[name] = cases[name]()
+            except RuntimeError as e:   # e.g. no graph to differentiate
+                res[name], errors[name] = float("inf"), str(e)
+    worst = torch.tensor([res[k] for k in TRAIN_PRIMITIVES],
+                         dtype=torch.float64)
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    return {"gaps": dict(zip(TRAIN_PRIMITIVES, worst.tolist())),
+            "errors": errors}
+
+
+def case_train(out, m22, m14) -> dict:
+    """With autograd: the primitives' backwards, then DMC (float64, B = 2,
+    128 x 64, cascade 1, STE) on m22 (one ``make_dmc_train_step`` update)
+    and on m14 with remat (each frame recomputed in backward), the noise
+    loss on m22, and the "ssim" loss on m14. Returns what ``check_train``
+    holds against the unsharded references (rank 0's; the other ranks'
+    copies are dropped)."""
+    res = {"primitives": _primitive_grad_gaps(m14)}
+    clip, qs, lam = train_inputs()
+
+    def cut(mesh):
+        return (M.shard(mesh, clip, M.clip_sharding(mesh)),
+                {k: M.shard(mesh, v, M.scalar_sharding(mesh))
+                 for k, v in qs.items()},
+                M.shard(mesh, lam, M.scalar_sharding(mesh)))
+
+    module = train_module()
+    loss, bpp, g22 = train_step(module, m22, *cut(m22))
+    # every rank took the same update: against rank 0's, broadcast
+    names, params = zip(*module.named_parameters())
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+    flat0 = flat.clone()
+    dist.broadcast(flat0, 0)
+    after = {n: t.view_as(p) for n, p, t in zip(
+        names, params, flat0.split([p.numel() for p in params]))}
+    res["m22"] = {"loss": loss, "bpp": bpp,
+                  "params_rank_gap": float((flat - flat0).abs().max())}
+
+    module = train_module()
+    loss, bpp, g14 = loss_and_grads(module, m14, *cut(m14), remat=True)
+    res["m14"] = {"loss": loss, "bpp": bpp, "remat": True}
+    with torch.no_grad():
+        loss, aux = S.make_dmc_cascade_loss(
+            module, 1, quant_mode="noise", mesh=m22)(*cut(m22),
+                                                     seed=NOISE_SEED)
+    res["m22_noise"] = {"loss": float(aux["loss"]), "bpp": float(aux["bpp"])}
+    x, y, net = ssim_inputs()
+    s14 = M.frame_sharding(m14)
+    loss, g, gy = ssim_loss_and_grads(m14, M.shard(m14, x, s14),
+                                      M.shard(m14, y, s14), net, lam)
+    res["m14_ssim"] = {"loss": loss, "grads": g,
+                       "y_grad": M.gather(m14, gy, s14)}
+    out["train"] = res
+    return ({"g22": g22, "after": after, "g14": g14}
+            if dist.get_rank() == 0 else {})
+
+
+def check_train(out, state, workdir) -> None:
+    """Rank 0: the sharded gradients and update against the unsharded
+    ones in ``train_ref.pt``, kept as gaps."""
+    if not state:
+        return
+    ref = _wait_for(workdir, "train_ref.pt")
+    res = out["train"]
+    res["m22"]["worst_grad"] = _worst(_rel_gaps(state["g22"], ref["grads"]))
+    res["m22"]["update_gap"] = max(
+        float((state["after"][k] - v).abs().max())
+        for k, v in ref["params_after"].items())
+    res["m14"]["worst_grad"] = _worst(_rel_gaps(state["g14"], ref["grads"]))
+
+
 def main(rank: int, world: int, port: int, workdir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -267,12 +588,19 @@ def main(rank: int, world: int, port: int, workdir: str) -> None:
     times = {}
     t = time.time()
     m22, m14 = case_mesh(out)
+    state = {}
     for name, run in (("primitives", lambda: case_primitives(out, m14)),
                       ("evc", lambda: case_evc(out, m14)),
                       ("dmc_forward", lambda: case_dmc_forward(out, m22)),
+                      ("train", lambda: state.update(case_train(out, m22,
+                                                                m14))),
                       ("coding", lambda: case_coding(out, m22, m14,
-                                                     workdir))):
-        with torch.no_grad():
+                                                     workdir)),
+                      ("train_check", lambda: check_train(out, state,
+                                                          workdir))):
+        # the train cases run with autograd, before the coding case waits
+        # for the parent's coding inputs
+        with torch.set_grad_enabled(name == "train"):
             run()
         times[name] = time.time() - t
         t = time.time()

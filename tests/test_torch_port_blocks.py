@@ -18,6 +18,7 @@ from dcvc_tpu.layers import blocks as J
 from dcvc_tpu_torch.layers import blocks as T
 from dcvc_tpu_torch.utils.convert import FlaxToTorch
 from _flax_init import init_params
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

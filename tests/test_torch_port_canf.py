@@ -29,6 +29,7 @@ from dcvc_tpu_torch.models.runtime import HemVideoRuntime
 from dcvc_tpu_torch.models.video_canf import CANFVCDmc, CanfMainCoder
 from dcvc_tpu_torch.utils.checkpoint import load_state_dict
 from dcvc_tpu_torch.utils.convert import canf_dmc_from_jax
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 WIDTHS = {"channel_mv": 16, "channel_N": 16, "channel_M": 24}
 DPB_KEYS = ("ref_frame", "ref_y", "ref_mv_y")

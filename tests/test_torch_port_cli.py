@@ -65,6 +65,7 @@ from dcvc_tpu_torch.tools import test_image as image_cli
 from dcvc_tpu_torch.tools import test_video as cli
 from dcvc_tpu_torch.utils import color, png
 import _waits
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 H, W, FRAMES, Q = 64, 96, 2, 32

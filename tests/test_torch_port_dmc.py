@@ -32,6 +32,7 @@ from dcvc_tpu_torch.models.video_dc import DMC, build_dmc
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.convert import dmc_from_jax
 from _flax_init import init_params
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -60,6 +60,7 @@ from dcvc_tpu_torch.ops.warp import flow_warp
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.convert import (dmc_from_jax, evc_from_jax,
                                           intra_dc_from_jax)
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 BF = torch.bfloat16
 JBF = jnp.bfloat16

@@ -60,6 +60,7 @@ from dcvc_tpu_torch.models.video_tcm import DMCTcm
 from dcvc_tpu_torch.utils.convert import ZOO_KINDS
 from test_torch_port_dtype import (ULPS_BLOCK, ULPS_NET, _check, _frames,
                                    _jtree, _nchw, _sd, _Tap, _ttree)
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 BF = torch.bfloat16
 JBF = jnp.bfloat16

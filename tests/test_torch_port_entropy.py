@@ -30,6 +30,7 @@ from dcvc_tpu_torch.entropy.bit_estimator import (
 from dcvc_tpu_torch.entropy.coder import AsyncEntropyCoder, EntropyCoder
 from dcvc_tpu_torch.entropy.gaussian import GaussianConditionalCoder
 from dcvc_tpu_torch.utils.convert import FlaxToTorch
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 
 def _estimators(C, seed):

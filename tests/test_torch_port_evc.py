@@ -39,6 +39,7 @@ from dcvc_tpu_torch.ops.math import lower_bound
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.convert import evc_from_jax
 from _flax_init import init_params
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 GOLDEN = Path(__file__).parent / "golden"
 GOLDEN_CH = (16, 16, 24, 32)

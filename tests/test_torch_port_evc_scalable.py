@@ -28,6 +28,7 @@ from dcvc_tpu_torch.models.runtime import ScalableEvcRuntime
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.checkpoint import load_state_dict
 from dcvc_tpu_torch.utils.convert import evc_scalable_from_jax
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 ENC_CH, DEC_CH, N = (8, 8, 12, 16), (16, 16, 16, 16), 16
 

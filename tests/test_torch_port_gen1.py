@@ -46,6 +46,7 @@ from dcvc_tpu_torch.ops.warp import RD_GATED_BLOCK_MODE
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.convert import dcvc_gen1_from_jax
 from _flax_init import init_params
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 WIDTHS = {"channel_mv": 16, "channel_N": 16, "channel_M": 24}
 ATOL = 2e-5

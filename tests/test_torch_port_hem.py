@@ -41,6 +41,7 @@ from dcvc_tpu_torch.ops.warp import RD_GATED_BLOCK_MODE
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.convert import dmc_hem_from_jax, intra_hem_from_jax
 from _flax_init import init_params
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 GOLDEN = Path(__file__).parent / "golden"
 P_WIDTHS = {"channel_mv": 16, "channel_N": 16, "channel_M": 24}

@@ -23,6 +23,7 @@ from dcvc_tpu_torch.models import hem_common
 from dcvc_tpu_torch.models.registry import build
 from dcvc_tpu_torch.utils.checkpoint import load_state_dict
 from dcvc_tpu_torch.utils.convert import dmc_hem_from_jax, intra_hem_from_jax
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

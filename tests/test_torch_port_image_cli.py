@@ -37,6 +37,7 @@ from dcvc_tpu_torch.models.intra_zoo import build_zoo
 from dcvc_tpu_torch.models.registry import build
 from dcvc_tpu_torch.tools import test_image as cli
 from dcvc_tpu_torch.utils import stream
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 SIZES = {"a.png": (64, 64), "b.png": (60, 52)}
 FRAME_KEYS = {"bpp", "psnr", "enc_time", "dec_time", "latency"}

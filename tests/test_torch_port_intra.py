@@ -31,6 +31,7 @@ from dcvc_tpu_torch.models.runtime import IntraDcRuntime
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.convert import intra_dc_from_jax
 from _flax_init import init_params
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -11,14 +11,26 @@ unsharded ``EVCIntra.apply`` on the seeded port EVC carried over with
 ``port_dc.convert_evc``, and the port's own unsharded DMC runs (which
 ``test_torch_port_dmc.py`` holds against JAX). The cases mirror
 ``tests/test_sharding.py``, ``test_sharding_coding.py`` and
-``test_sharding_dmc.py``.
+``test_sharding_dmc.py``. Its train-step gradient
+(``test_dmc_train_grad_sharded_matches_unsharded``) becomes the train
+cases: the ranks run DMC's sharded float64 loss, gradients and one
+update, and the parent the port's unsharded ones (which
+``test_torch_port_train_grads.py`` holds against ``jax.value_and_grad``),
+as JAX holds its sharded gradient to its unsharded one.
 
 EVC's and DMC's sharded streams are byte-equal to the unsharded ones.
 Tolerances: EVC x_hat atol 2e-5 and bpp rtol 1e-5 against JAX; the DMC
 forward's recon atol 3e-5 and bpp rtol 2e-4 against the unsharded port;
 sharded decode recon / ref_feature atol 3e-5 against the unsharded
 decode; the sharded encoder and decoder agree exactly; streams are
-byte-equal; the tile primitives are bit-exact.
+byte-equal; the tile primitives are bit-exact. Training, float64: each
+tile primitive's gradients within 1e-12 (relative max-abs) of autograd of
+the whole tensor; DMC's sharded loss and bpp rtol 1e-10 and every
+parameter's gradient within 1e-10 relative L2 of the unsharded step's
+(measured: 5.4e-14 at worst); remat (on tile 4), noise and "ssim" the
+same; after
+one sharded update the parameters are equal on every rank and within 2 *
+lr of the unsharded update (the trainer test's rule; measured ~5e-14).
 """
 
 import hashlib
@@ -44,15 +56,19 @@ from dcvc_tpu_torch.entropy.gaussian import GaussianConditionalCoder
 from dcvc_tpu_torch.models.runtime import DmcRuntime, EvcCodecRuntime
 from dcvc_tpu_torch.models.video_dc import build_dmc
 from dcvc_tpu_torch.parallel import mesh as M
+from dcvc_tpu_torch.training import step as S
 from dcvc_tpu_torch.utils import stream
 from dcvc_tpu_torch.utils.convert import dmc_from_jax
 from _flax_init import init_params
 import _mesh_ranks as R
 from _waits import communicate_all
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "golden"
 SPAWN_TIMEOUT_S = 300
+PRIMITIVE_GRAD_TOL = 1e-12
+LOSS_RTOL = GRAD_REL_L2 = 1e-10
 
 
 def _nchw(a):
@@ -122,6 +138,27 @@ def _references(coding):
     return ref
 
 
+def _train_references():
+    """The port's unsharded train cases on the ranks' inputs: one
+    ``make_dmc_train_step`` update (its loss, bpp, gradients before the
+    clip and parameters after), the noise loss, and the "ssim" loss.
+    Returns (the tensors for the ranks, the scalars for the tests)."""
+    clip, qs, lam = R.train_inputs()
+    module = R.train_module()
+    loss, bpp, grads = R.train_step(module, None, clip, qs, lam)
+    for_ranks = {"grads": grads, "params_after": {
+        k: p.detach().clone() for k, p in module.named_parameters()}}
+    with torch.no_grad():
+        _, aux = S.make_dmc_cascade_loss(R.train_module(), 1,
+                                         quant_mode="noise")(
+            clip, qs, lam, seed=R.NOISE_SEED)
+    x, y, net = R.ssim_inputs()
+    s_loss, s_grads, s_y = R.ssim_loss_and_grads(None, x, y, net, lam)
+    return for_ranks, {"loss": loss, "bpp": bpp,
+                       "noise": (float(aux["loss"]), float(aux["bpp"])),
+                       "ssim": (s_loss, s_grads, s_y)}
+
+
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
     """Spawn the 4 gloo ranks, compute the references meanwhile, then
@@ -140,8 +177,13 @@ def sharded(tmp_path_factory):
         coding = _coding_inputs()
         torch.save(coding, work / "coding.tmp")
         os.replace(work / "coding.tmp", work / "coding.pt")
+        for_ranks, train_ref = _train_references()
+        torch.save(for_ranks, work / "train_ref.tmp")
+        os.replace(work / "train_ref.tmp", work / "train_ref.pt")
+        del for_ranks
         with torch.no_grad():
             ref = _references(coding)
+        ref["train"] = train_ref
         outs = communicate_all(procs, max(deadline - time.time(), 1))
     finally:
         torch.set_num_threads(n)
@@ -274,3 +316,82 @@ def test_stream_parts_align_to_latent_tiles():
         np.testing.assert_array_equal(
             sym.reshape(-1)[p * each:(p + 1) * each],
             sym[p * rows:(p + 1) * rows].reshape(-1))
+
+
+@pytest.mark.parametrize("name", R.TRAIN_PRIMITIVES)
+def test_tile_primitive_gradient_equals_whole_tensor(sharded, name):
+    """Under tile 4 with autograd, the input (and parameter) gradients of
+    each primitive, and of the ops built on it, equal autograd's of the
+    whole tensor: the halo rows' gradients reach their owners, gathered
+    rows pass their gradients back, a replicated term counts once."""
+    prim = sharded[0]["train"]["primitives"]
+    assert prim["gaps"][name] <= PRIMITIVE_GRAD_TOL, (
+        prim["gaps"][name], prim["errors"].get(name))
+
+
+@pytest.mark.parametrize("mesh", ["m22", "m14"])
+def test_dmc_sharded_train_loss_and_gradients_match_unsharded(sharded,
+                                                              mesh):
+    """test_sharding_dmc.py:80 in the port: DMC's float64 STE loss and
+    every parameter's gradient on data 2 x tile 2 (one train step's) and
+    on tile 4 (with remat), reduced over the mesh, against the unsharded
+    step's."""
+    res, ref = sharded
+    got, want = res["train"][mesh], ref["train"]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got["bpp"], want["bpp"], rtol=LOSS_RTOL)
+    assert got["worst_grad"][0] <= GRAD_REL_L2, got["worst_grad"]
+
+
+def test_dmc_remat_under_tile4_equals_plain(sharded):
+    """Recomputing each frame in backward (torch.utils.checkpoint, the
+    frame re-entering its tile context, in backward and outside the
+    loss's ``tile.context``) on tile 4 gives the loss and gradients of the
+    plain step (remat=False), unsharded and on data 2 x tile 2."""
+    res, ref = sharded
+    got = res["train"]
+    assert got["m14"]["remat"]
+    for plain in (ref["train"], got["m22"]):
+        np.testing.assert_allclose(got["m14"]["loss"], plain["loss"],
+                                   rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got["m14"]["bpp"], plain["bpp"],
+                                   rtol=LOSS_RTOL)
+    assert got["m14"]["worst_grad"][0] <= GRAD_REL_L2, got["m14"]["worst_grad"]
+
+
+def test_dmc_noise_loss_on_m22_equals_unsharded(sharded):
+    """quant_mode="noise": each rank draws the whole tensors' noise and
+    keeps its slab, so the sharded rate surrogate is the unsharded one."""
+    res, ref = sharded
+    got = res["train"]["m22_noise"]
+    loss, bpp = ref["train"]["noise"]
+    np.testing.assert_allclose(got["loss"], loss, rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got["bpp"], bpp, rtol=LOSS_RTOL)
+    assert abs(got["bpp"] - ref["train"]["bpp"]) > 1e-3   # noise drawn
+
+
+def test_ssim_loss_on_tile4_equals_unsharded(sharded):
+    """rd_loss's "ssim" distortion on tile 4 (MS-SSIM whole on the
+    gathered rows, counted once) at 192 x 192, whose recon comes through
+    a sharded convolution: the loss and the gradients of the convolution
+    and of its input against the unsharded ones."""
+    res, ref = sharded
+    got = res["train"]["m14_ssim"]
+    loss, grads, y_grad = ref["train"]["ssim"]
+    np.testing.assert_allclose(got["loss"], loss, rtol=LOSS_RTOL)
+    for k, g in grads.items():
+        gap = float(torch.linalg.vector_norm(got["grads"][k] - g)
+                    / torch.linalg.vector_norm(g))
+        assert gap <= GRAD_REL_L2, (k, gap)
+    gap = float(torch.linalg.vector_norm(got["y_grad"] - y_grad)
+                / torch.linalg.vector_norm(y_grad))
+    assert gap <= GRAD_REL_L2, gap
+
+
+def test_dmc_sharded_update_keeps_the_ranks_equal(sharded):
+    """One make_dmc_train_step update on data 2 x tile 2: the reduced
+    gradient gives every rank the same parameters, within 2 * lr of the
+    unsharded update's."""
+    got = sharded[0]["train"]["m22"]
+    assert got["params_rank_gap"] == 0.0
+    assert got["update_gap"] <= 2 * R.TRAIN_LR, got["update_gap"]

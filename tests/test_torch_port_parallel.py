@@ -34,6 +34,7 @@ from dcvc_tpu_torch.parallel import jobs
 from dcvc_tpu_torch.tools import test_video as cli
 from dcvc_tpu_torch.utils import color
 from _waits import call_in_thread, communicate_all
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 

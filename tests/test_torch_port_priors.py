@@ -14,6 +14,7 @@ import torch
 
 from dcvc_tpu.models import priors as J
 from dcvc_tpu_torch.models import priors as T
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 B, H, W, C = 1, 6, 8, 16
 

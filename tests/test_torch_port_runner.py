@@ -33,6 +33,7 @@ from dcvc_tpu_torch.models.registry import build
 from dcvc_tpu_torch.runner import adapters
 from dcvc_tpu_torch.runner import video as tvideo
 from dcvc_tpu_torch.utils import color
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 BLOCK = "block:4,4,64,128,median4"
 H, W, FRAMES = 64, 96, 3

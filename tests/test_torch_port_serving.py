@@ -45,6 +45,7 @@ from dcvc_tpu_torch.models.registry import build
 from dcvc_tpu_torch.serving import CodecClient, CodecServer, ServerError
 from dcvc_tpu_torch.serving import protocol
 from dcvc_tpu_torch.utils import stream
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 H, W = 64, 96

@@ -32,6 +32,7 @@ from dcvc_tpu_torch.models.video_tcm import DMCTcm
 from dcvc_tpu_torch.ops.warp import RD_GATED_BLOCK_MODE
 from dcvc_tpu_torch.utils.convert import dmc_tcm_from_jax
 from _flax_init import init_params
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 GOLDEN = Path(__file__).parent / "golden"
 WIDTHS = {"channel_mv": 16, "channel_N": 16, "channel_M": 24}

@@ -21,6 +21,7 @@ from dcvc_tpu.ops import warp as jwarp
 from dcvc_tpu.utils import port_dc
 from dcvc_tpu_torch.models.registry import build
 from dcvc_tpu_torch.ops import warp as twarp
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -37,6 +37,7 @@ from dcvc_tpu_torch.models.registry import build
 from dcvc_tpu_torch.ops import rans_compat as compat
 from dcvc_tpu_torch.tools import data_to_png, model_complexity, rd_compare
 from dcvc_tpu_torch.utils import color, rd_numbers, vision
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -18,6 +18,7 @@ import pytest
 from dcvc_tpu.training import data as jdata
 from dcvc_tpu_torch.training import data as tdata
 from dcvc_tpu_torch.utils.png import write_png
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 
 def _same(a, b):

@@ -68,6 +68,7 @@ from dcvc_tpu_torch.models.video_hem import DMCHem
 from dcvc_tpu_torch.ops.warp import flow_warp
 from dcvc_tpu_torch.training import step as tstep
 from dcvc_tpu_torch.utils import convert
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 P_WIDTHS = {"channel_mv": 16, "channel_N": 16, "channel_M": 24}
 EVC_CH = (16, 16, 24, 32)
@@ -108,7 +109,7 @@ def _patch_noise(monkeypatch):
     NCHW shape (the JAX side in NHWC); returns the per-package call lists."""
     calls = {"port": [], "jax": []}
 
-    def port(x, generator):
+    def port(x, generator, rows=True):
         calls["port"].append(tuple(x.shape))
         return x + torch.from_numpy(_draw(len(calls["port"]) - 1,
                                           tuple(x.shape)))

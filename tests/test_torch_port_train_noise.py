@@ -40,6 +40,7 @@ from dcvc_tpu_torch.models.intra_zoo import build_zoo
 from dcvc_tpu_torch.models.video_dcvc import DCVCNet
 from dcvc_tpu_torch.models.video_tcm import DMCTcm
 from dcvc_tpu_torch.utils.convert import ZOO_KINDS
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 P_WIDTHS = {"channel_mv": 16, "channel_N": 16, "channel_M": 24}
 EVC_CH = (16, 16, 24, 32)
@@ -82,7 +83,7 @@ class _Draws:
         rng = np.random.default_rng([self.seed, k])
         return rng.uniform(-0.5, 0.5, shape_nchw).astype(np.float32)
 
-    def port(self, x, generator):
+    def port(self, x, generator, rows=True):
         assert isinstance(generator, torch.Generator)
         return x + torch.from_numpy(self._draw("port", tuple(x.shape)))
 

@@ -29,6 +29,7 @@ from dcvc_tpu.training import trainer as jtrainer
 from dcvc_tpu_torch.ops import ms_ssim as tssim
 from dcvc_tpu_torch.training import step as tstep
 from dcvc_tpu_torch.training import trainer as ttrainer
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 OPT_REL_L2 = 1e-6
 SSIM_TOL = {"rtol": 1e-5, "atol": 1e-6}

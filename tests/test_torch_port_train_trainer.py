@@ -33,6 +33,7 @@ from dcvc_tpu_torch.training import data as tdata
 from dcvc_tpu_torch.training import trainer as ttrainer
 from dcvc_tpu_torch.training.step import q_levels_for_batch
 from dcvc_tpu_torch.utils.checkpoint import load_state_dict
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 P_WIDTHS = {"channel_mv": 16, "channel_N": 16, "channel_M": 24}
 LR = 1e-4

@@ -19,6 +19,7 @@ from dcvc_tpu.utils import results as jresults
 from dcvc_tpu.utils import stream as jstream
 from dcvc_tpu.utils import video_io as jio
 from dcvc_tpu_torch.utils import color, metrics, results, stream, video_io
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 
 def _rgb(h, w, seed):

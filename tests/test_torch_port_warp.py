@@ -20,6 +20,7 @@ from dcvc_tpu.ops import block_warp as jbw
 from dcvc_tpu.ops import warp as jwarp
 from dcvc_tpu_torch.ops import block_warp as tbw
 from dcvc_tpu_torch.ops import warp as twarp
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -44,6 +44,7 @@ from dcvc_tpu_torch.layers.gdn import GDN, GDN1
 from dcvc_tpu_torch.models.intra_zoo import build_zoo
 from dcvc_tpu_torch.models.runtime import IntraZooRuntime
 from dcvc_tpu_torch.utils.convert import ZOO_KINDS, zoo_from_jax
+from _flax_init import flax_param_checks  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 
