@@ -1,0 +1,7 @@
+"""Frames both encoded and decoded in the window, per second of the window."""
+
+from benchmark.readers import rate
+
+
+def read(rec):
+    return rate(rec)

@@ -1,0 +1,9 @@
+"""90th percentile over every image of the window of its encode wall time
+plus its decode wall time (host clock after ``synchronize()``, rANS
+included)."""
+
+from benchmark.readers import latency_ms
+
+
+def read(rec):
+    return latency_ms(rec, 90)
