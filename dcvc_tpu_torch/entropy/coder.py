@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..ops.rans import RansDecoder, RansEncoder
+from ..utils import trace
 
 
 @dataclass
@@ -33,6 +34,10 @@ def np_i16_symbols(x) -> np.ndarray:
 
 
 class EntropyCoder:
+    """The boundary to the native coder: each call below is a ``rans``
+    span (its ``op``), and ``rans.symbols`` counts the symbols encoded
+    plus those decoded."""
+
     def __init__(self, stream_part: int = 1):
         self.encoder = RansEncoder(stream_part)
         self.decoder = RansDecoder(stream_part)
@@ -41,24 +46,32 @@ class EntropyCoder:
         self.encoder.reset()
 
     def encode_with_indexes(self, symbols, indexes, table: CdfTable):
-        self.encoder.encode_with_indexes(
-            np_i16_symbols(symbols),
-            np.asarray(indexes).reshape(-1).astype(np.int16),
-            table.quantized_cdf, table.cdf_length, table.offset)
+        with trace.span("rans", op="encode_with_indexes"):
+            sym = np_i16_symbols(symbols)
+            self.encoder.encode_with_indexes(
+                sym, np.asarray(indexes).reshape(-1).astype(np.int16),
+                table.quantized_cdf, table.cdf_length, table.offset)
+        trace.count("rans.symbols", sym.size)
 
     def flush(self):
-        self.encoder.flush()
+        with trace.span("rans", op="flush"):
+            self.encoder.flush()
 
     def get_encoded_stream(self) -> bytes:
-        return self.encoder.get_encoded_stream().tobytes()
+        with trace.span("rans", op="get_encoded_stream"):
+            return self.encoder.get_encoded_stream().tobytes()
 
     def set_stream(self, stream: bytes):
-        self.decoder.set_stream(stream)
+        with trace.span("rans", op="set_stream"):
+            self.decoder.set_stream(stream)
 
     def decode_stream(self, indexes, table: CdfTable) -> np.ndarray:
-        return self.decoder.decode_stream(
-            np.asarray(indexes).reshape(-1).astype(np.int16),
-            table.quantized_cdf, table.cdf_length, table.offset)
+        with trace.span("rans", op="decode_stream"):
+            out = self.decoder.decode_stream(
+                np.asarray(indexes).reshape(-1).astype(np.int16),
+                table.quantized_cdf, table.cdf_length, table.offset)
+        trace.count("rans.symbols", out.size)
+        return out
 
 
 class AsyncEntropyCoder(EntropyCoder):

@@ -32,6 +32,7 @@ gathered, and each rank keeps its own rows of the host-decoded symbols.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -53,6 +54,7 @@ from ..entropy.gaussian import GaussianConditionalCoder
 from ..entropy.gaussian_conditional import GaussianConditional
 from ..ops.warp import get_downsampled_shape, get_padding_size
 from ..parallel import tile
+from ..utils import trace
 from . import priors
 from .ar_coding import ArNets, ar_decode, ar_encode
 from .intra_dc import build_fine_q_tables
@@ -62,10 +64,12 @@ from .video_dcvc import extract_ar_nets
 
 def _to_host_nhwc(t: torch.Tensor) -> np.ndarray:
     """NHWC host copy; bf16 comes over as f32 (numpy has no bf16), as the
-    JAX runtimes read their bf16 planes back."""
+    JAX runtimes read their bf16 planes back. The coding path's one
+    device-to-host copy: it waits for the device's queued work."""
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.permute(0, 2, 3, 1).contiguous().cpu().numpy()
+    with trace.span("runtime.readback"):
+        return t.permute(0, 2, 3, 1).contiguous().cpu().numpy()
 
 
 def _symbols_nhwc(plane: torch.Tensor) -> np.ndarray:
@@ -84,6 +88,19 @@ def _dual_chain(q_step, scales, means, scales_step1, sym_source):
     scales_r, means_pair = scales_step1(q_step, scales, means, h0, h1)
     d0, d1 = priors.dual_decode_update(sym_source(scales_r), means_pair, 1)
     return h0 + d0, h1 + d1
+
+
+def _call_span(fn):
+    """Runs a runtime's ``compress`` / ``decompress`` in the span
+    ``runtime.<name>``."""
+    name = f"runtime.{fn.__name__}"
+
+    @functools.wraps(fn)
+    def call(rt, *args, **kwargs):
+        with trace.span(name):
+            return fn(rt, *args, **kwargs)
+
+    return call
 
 
 class _RuntimeBase:
@@ -117,7 +134,10 @@ class _RuntimeBase:
         raise NotImplementedError
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        if isinstance(x, torch.Tensor) and x.device.type == self.device.type:
+            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        with trace.span("runtime.upload"):
+            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def _slab_height(self, x: torch.Tensor) -> int:
         """Rows of the whole frame whose slab is ``x``."""
@@ -128,8 +148,9 @@ class _RuntimeBase:
         # passes as contiguous but keeps channels-last strides, and a
         # convolution may then take another algorithm than the encoder's
         # (other f32 bits, other scale indexes)
-        t = torch.from_numpy(np.asarray(a, np.float32)).permute(0, 3, 1, 2)
-        return torch.empty(t.shape, device=self.device).copy_(t)
+        with trace.span("runtime.upload"):
+            t = torch.from_numpy(np.asarray(a, np.float32)).permute(0, 3, 1, 2)
+            return torch.empty(t.shape, device=self.device).copy_(t)
 
     # host-side helpers -----------------------------------------------------
 
@@ -196,6 +217,7 @@ class EvcCodecRuntime(_RuntimeBase):
         with tile.context(self.mesh, self._slab_height(x)):
             return self.module(x, self._tensor(q_scale))
 
+    @_call_span
     @torch.no_grad()
     def compress(self, x, q_scale):
         x = self._tensor(x)
@@ -235,6 +257,7 @@ class EvcCodecRuntime(_RuntimeBase):
         self.entropy_coder.flush()
         return self.entropy_coder.get_encoded_stream()
 
+    @_call_span
     @torch.no_grad()
     def decompress(self, bit_stream, height, width, q_scale):
         self.entropy_coder.set_stream(bit_stream)
@@ -274,6 +297,7 @@ class ScalableEvcRuntime(EvcCodecRuntime):
         return {"x_hat": out["x_hat"][cid:cid + 1], "bit": out["bit"][cid],
                 "bpp": out["bpp"][cid:cid + 1], "enc_id": cid}
 
+    @_call_span
     @torch.no_grad()
     def compress(self, x, q_scale):
         x, q_scale = self._tensor(x), self._tensor(q_scale)
@@ -349,6 +373,7 @@ class IntraZooRuntime(_RuntimeBase):
         return self._flush(), self._from_host_nhwc(
             np.round(plane - medians) + medians)
 
+    @_call_span
     @torch.no_grad()
     def compress(self, x):
         """``{"strings", "shape" (the coded latent's H, W), "x_hat"}``."""
@@ -383,6 +408,7 @@ class IntraZooRuntime(_RuntimeBase):
         return {"strings": [coder.get_encoded_stream(), z_string],
                 "shape": tuple(z.shape[2:]), "x_hat": m.synthesize(y_hat)}
 
+    @_call_span
     @torch.no_grad()
     def decompress(self, strings, shape_hw):
         m, coder = self.module, self.entropy_coder
@@ -459,6 +485,7 @@ class DcvcGen1Runtime(_RuntimeBase):
         coder.flush()
         return coder.get_encoded_stream(), self._from_host_nhwc(y_hat[None])
 
+    @_call_span
     @torch.no_grad()
     def compress(self, referframe, input_image):
         m = self.module
@@ -481,6 +508,7 @@ class DcvcGen1Runtime(_RuntimeBase):
                 "z_string": z_string, "y_string": y_string,
                 "recon_image": m.synthesis(y_hat, context)}
 
+    @_call_span
     @torch.no_grad()
     def decompress(self, referframe, mv_y_string, mv_z_string, y_string,
                    z_string, height, width):
@@ -559,6 +587,7 @@ class TcmVideoRuntime(_RuntimeBase):
             self._from_host_nhwc(_to_host_nhwc(z_hat)))
         return [self._indexes(mv_scales), self._indexes(scales)]
 
+    @_call_span
     @torch.no_grad()
     def compress(self, x, ref_frame, ref_feature):
         out = self.module.compress_device(self._tensor(x), ref_frame,
@@ -579,6 +608,7 @@ class TcmVideoRuntime(_RuntimeBase):
         return {"bit_stream": self.entropy_coder.get_encoded_stream(),
                 "x_hat": out["x_hat"], "feature": out["feature"]}
 
+    @_call_span
     @torch.no_grad()
     def decompress(self, ref_frame, ref_feature, string, height, width):
         m = self.module
@@ -661,6 +691,7 @@ class HemVideoRuntime(_RuntimeBase):
                              lambda: z_fresh, dpb, mv_q, yh, yw, sym_source)
         return recorded
 
+    @_call_span
     @torch.no_grad()
     def compress(self, x, dpb, mv_y_q_scale, y_q_scale):
         x = self._tensor(x)
@@ -690,6 +721,7 @@ class HemVideoRuntime(_RuntimeBase):
         return {"dpb": out["dpb"],
                 "bit_stream": self.entropy_coder.get_encoded_stream()}
 
+    @_call_span
     @torch.no_grad()
     def decompress(self, dpb, string, height, width, mv_y_q_scale, y_q_scale):
         m = self.module
@@ -768,6 +800,7 @@ class DmcRuntime(_RuntimeBase):
                     tile.gather_rows(s))).reshape(-1) for s in scales]
         return out, syms, idx
 
+    @_call_span
     @torch.no_grad()
     def compress(self, x, dpb, q_in_ckpt: bool, q_index: int, frame_idx: int):
         out, syms, idx = self.code_planes(x, dpb, q_in_ckpt, q_index,
@@ -824,6 +857,7 @@ class DmcRuntime(_RuntimeBase):
                              qs, frame_idx, yh, yw, sym_source)
         return recorded
 
+    @_call_span
     @torch.no_grad()
     def decompress(self, dpb, string, height, width, q_in_ckpt: bool,
                    q_index: int, frame_idx: int):
@@ -885,6 +919,7 @@ class IntraDcRuntime(_RuntimeBase):
         qe, qd = self.get_q_for_inference(q_in_ckpt, q_index)
         return self.module(self._tensor(x), qe, qd)
 
+    @_call_span
     @torch.no_grad()
     def compress(self, x, q_in_ckpt: bool, q_index: int):
         qe, qd = self.get_q_for_inference(q_in_ckpt, q_index)
@@ -901,6 +936,7 @@ class IntraDcRuntime(_RuntimeBase):
             "x_hat": out["x_hat"],
         }
 
+    @_call_span
     @torch.no_grad()
     def decompress(self, bit_stream, height, width, q_in_ckpt: bool,
                    q_index: int):

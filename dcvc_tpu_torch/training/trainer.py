@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import trace
 from ..utils.checkpoint import load_state_dict
 from .step import (ClipAdamW, cascade_loss, fold_in, piecewise_constant,
                    q_levels_for_batch)
@@ -184,13 +185,15 @@ class PFrameTrainer:
                    lambdas) -> float:
         """One update on a device clip; its noise seed folds the update
         count into the trainer's seed."""
-        key = fold_in(self.seed, self.updates)
-        opt.zero_grad()
-        loss = self.loss(clip, lambdas, stage, key)
-        loss.backward()
-        opt.step()
-        self.updates += 1
-        return float(loss.detach())
+        with trace.span("train.step"):
+            key = fold_in(self.seed, self.updates)
+            opt.zero_grad()
+            loss = self.loss(clip, lambdas, stage, key)
+            loss.backward()
+            opt.step()
+            self.updates += 1
+            with trace.span("train.readback"):
+                return float(loss.detach())
 
     def fit(self, dataset, batch_size: int = 4, steps_per_epoch: int = 100,
             log_every: int = 20, save_every_epoch: bool = True,
