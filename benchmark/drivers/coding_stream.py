@@ -16,27 +16,38 @@ first two are compared with the reference, drawn from the seed below
 frame, after frame 1, and the count of the profiled stretch). Set-up codes one frame of each kind (I; the first P
 after it; a later P) before the window.
 
-Correctness: after the window the reference recomputes, from the same
-input frame and weights, the reconstruction and the DPB of every sampled
-frame and of frames 0 and 1: frame 0 from its input alone, frame 1 from
-the reference's own frame 0, every later P-frame from the DPB the
-program's decoder held before it. ``recon_gap`` is the largest absolute
-gap of a decoded reconstruction, ``feature_gap`` the largest gap of the
-other DPB tensors relative to the reference's largest magnitude.
+Correctness: after the window the program decodes each sampled frame
+and frames 0 and 1 once more from the bytes the window coded, with a tap
+on its entropy decoder that keeps every symbol plane it decodes. The
+reference then recomputes, from the same input frame and weights, the
+reconstruction and the DPB of those frames: frame 0 from its input alone,
+frame 1 from the reference's own frame 0, every later P-frame from the
+DPB the program's decoder held before it. It follows the program's
+symbols (``reference/symbols.py``): each coded latent's symbols are the
+decoder's, and each is judged against the reference's own rounding.
+``symbol_faults`` counts those that differ other than by a rounding tie
+within the limits file's ``tie_delta`` (``tie_symbols``, reported, not
+bound); ``recon_gap`` is the largest absolute gap of a decoded
+reconstruction, ``feature_gap`` the largest gap of the other DPB tensors
+relative to the reference's largest magnitude.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import random
 import time
 
+import numpy as np
 import torch
 
 from .. import harness
 from ..inputs import Frames, make_weights
 from ..reference import build as build_reference
 from ..reference.counts import conv_flops, k1_bytes
+from ..reference.layers import accumulate_f64
+from ..reference.symbols import Symbols
 
 CONTAINERS = ("video_q_index", "image_q_scale")
 DPB_KEYS = ("ref_frame", "ref_feature", "ref_mv_feature", "ref_y",
@@ -135,54 +146,109 @@ class ProgramCodec:
         return self.prt.decompress(dpb, s, shape[0], shape[1], qc, qi, fi)[
             "dpb"]
 
+    def decoded_symbols(self, kind, data, dpb, shape) -> list:
+        """The symbol planes the decoder produces from ``data``, flat, in
+        stream order: the frame decoded once more, with a tap on the
+        runtime's entropy decoder."""
+        coder = (self.irt if kind == "I" else self.prt).entropy_coder
+        planes = []
+        inner = coder.decode_stream
+        had = "decode_stream" in coder.__dict__
+
+        def tapped(*a, **k):
+            out = inner(*a, **k)
+            planes.append(torch.from_numpy(np.array(out, copy=True)))
+            return out
+
+        coder.decode_stream = tapped
+        try:
+            if kind == "I":
+                self.decode_i(data)
+            else:
+                self.decode_p(data, dpb, shape)
+        finally:
+            if had:
+                coder.decode_stream = inner
+            else:
+                del coder.decode_stream
+        return planes
+
     def close(self):
         self.irt = self.prt = None
 
 
 class ReferenceCodec:
-    """The reference in the program's place (the control): its
-    reconstruction and DPB are what it "decodes"; ``tf32`` computes it in
-    TF32, the precision below the configuration's."""
+    """The reference in the program's place (a control): its
+    reconstruction and DPB are what it "decodes", its own rounding the
+    symbols it decodes. ``precision``: ``tf32``, TF32 (the precision below
+    the configuration's); ``f64``, every dense convolution accumulated in
+    float64 and rounded to float32 (``accumulate_f64``: another exact
+    order)."""
 
-    def __init__(self, cfg: dict, w: dict, device, tf32: bool = False):
-        self.refs = {}
-        for name, sd in w.items():
-            m = build_reference(name, cfg).to(device).eval()
-            m.load_state_dict(sd, strict=True)
-            self.refs[name] = m
+    def __init__(self, cfg: dict, w: dict, device, precision: str):
+        if precision not in ("tf32", "f64"):
+            raise ValueError(f"no control precision {precision!r}")
+        self.refs = reference_modules(cfg, w, device)
+        if precision == "f64":
+            for m in self.refs.values():
+                accumulate_f64(m)
         self.cfg = cfg
-        self.tf32 = tf32
+        self.tf32 = precision == "tf32"
         self.i_name = cfg["models"]["i"]
         self.p_name = cfg["models"].get("p")
 
-    def _run(self, fn):
-        prev = (torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = self.tf32
-        torch.backends.cudnn.allow_tf32 = self.tf32
-        try:
-            with torch.no_grad():
-                return fn()
-        finally:
-            (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = prev
+    def _coded(self, module, fn) -> dict:
+        sym = Symbols(module.STREAM)
+        with _tf32(self.tf32):
+            out = fn(sym)
+        return {"out": out, "symbols": sym.stream(),
+                "residuals": sym.residuals()}
 
     def encode_i(self, x):
-        return self._run(lambda: reference_i(self.refs[self.i_name],
-                                             self.cfg, x))
+        m = self.refs[self.i_name]
+        return self._coded(m, lambda sym: reference_i(m, self.cfg, x, sym))
 
     def decode_i(self, data):
-        return data
+        return data.pop("out")
 
     def encode_p(self, x, dpb, i):
-        return self._run(lambda: reference_p(self.refs[self.p_name],
-                                             self.cfg, x, dpb, i))
+        m = self.refs[self.p_name]
+        return self._coded(m, lambda sym: reference_p(m, self.cfg, x, dpb,
+                                                      i, sym))
 
     def decode_p(self, data, dpb, shape):
-        return data
+        return data.pop("out")
+
+    def decoded_symbols(self, kind, data, dpb, shape) -> list:
+        return data["symbols"]
 
     def close(self):
         self.refs = {}
+
+
+@contextlib.contextmanager
+def _tf32(on: bool):
+    """TF32 on or off for the block, without gradients."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+def reference_modules(cfg: dict, w: dict, device) -> dict:
+    """The reference module of each model, with the weights ``w``."""
+    refs = {}
+    for name, sd in w.items():
+        m = build_reference(name, cfg).to(device).eval()
+        m.load_state_dict(sd, strict=True)
+        refs[name] = m
+    return refs
 
 
 def _image_container(cfg: dict) -> bool:
@@ -191,24 +257,29 @@ def _image_container(cfg: dict) -> bool:
     return cfg["container"] == "image_q_scale"
 
 
-def reference_i(module, cfg, x):
+def reference_i(module, cfg, x, sym=None):
     if _image_container(cfg):
-        return module.code(x, cfg["q_scale"])
-    return module.code(x, cfg.get("q_index", 0))
+        return module.code(x, cfg["q_scale"], sym)
+    return module.code(x, cfg.get("q_index", 0), sym)
 
 
-def reference_p(module, cfg, x, dpb, i):
+def reference_p(module, cfg, x, dpb, i, sym=None):
     qs = module.q_scales(cfg.get("q_index", 0), x.device)
-    return module(x, dpb, qs, i)[0]
+    return module(x, dpb, qs, i, sym=sym)[0]
+
+
+def _kind(i: int, gop: int) -> str:
+    return "I" if i % gop == 0 else ("P1" if i % gop == 1 else "P")
 
 
 def code_frames(codec, frames, gop: int, stop, keep=(), spans=None,
                 on_frame=None, dev=None):
     """Codes frames 0, 1, ... until ``stop(n_done, elapsed_s)``. Returns
     the records ``(kind, encode_s, decode_s, bytes)`` and, for frames in
-    ``keep``, ``(DPB before, decoded DPB)`` copied to the host, so that
-    the check's sample holds no device memory in the window; the copies'
-    seconds are left out of the elapsed time. ``on_frame(i, phase)`` runs
+    ``keep``, ``(DPB before, decoded DPB, coded data)``, the DPBs copied
+    to the host, so that the check's sample holds no device memory in the
+    window (the data is held, not copied); the copies' seconds are left
+    out of the elapsed time. ``on_frame(i, phase)`` runs
     before (``"start"``) and after (``"end"``) each frame, outside its
     times; it returns seconds to leave out of the elapsed time too."""
     spans = spans or harness.Spans()
@@ -220,7 +291,7 @@ def code_frames(codec, frames, gop: int, stop, keep=(), spans=None,
         x = frames(i)
         if on_frame is not None:
             excluded += on_frame(i, "start")
-        kind = "I" if i % gop == 0 else ("P1" if i % gop == 1 else "P")
+        kind = _kind(i, gop)
         _sync(dev)
         t0 = time.perf_counter()
         if t_start is None:
@@ -240,7 +311,7 @@ def code_frames(codec, frames, gop: int, stop, keep=(), spans=None,
         t2 = time.perf_counter()
         if i in keep:
             t = time.perf_counter()
-            held[i] = (_moved(dpb, "cpu"), _moved(out, "cpu"))
+            held[i] = (_moved(dpb, "cpu"), _moved(out, "cpu"), data)
             excluded += time.perf_counter() - t
         dpb = out
         records.append((kind, t1 - t0, t2 - t1,
@@ -271,23 +342,51 @@ def _gap(a, b) -> float:
     return float((a.double() - b.double()).abs().max().item())
 
 
-def readings(cfg: dict, w: dict, frames, gop: int, held: dict,
-             device) -> dict:
+def decoded(codec, frames, gop: int, held: dict, device) -> dict:
+    """Frame -> the symbol planes the codec's decoder produces for each
+    held frame (``decoded_symbols``), decoded after the window."""
+    out = {}
+    for i in sorted(held):
+        dpb_in, _, data = held[i]
+        shape = frames(i).shape[2:]
+        out[i] = codec.decoded_symbols(_kind(i, gop)[0], data,
+                                       _moved(dpb_in, device), shape)
+    return out
+
+
+def readings(cfg: dict, w: dict, frames, gop: int, held: dict, device,
+             planes: dict | None, delta: float,
+             residuals: dict | None = None) -> dict:
     """The reference's readings of the held frames (see the module's
-    docstring)."""
-    ref = ReferenceCodec(cfg, w, device)
+    docstring), following the decoder's symbol ``planes`` (frame -> list
+    in stream order); None: its own rounding, as the check did before it
+    followed the symbols. ``residuals`` (frame -> a control's residual
+    planes) adds how far the reference's residuals lie from them."""
+    refs = reference_modules(cfg, w, device)
     recon_gap, feature_gap = 0.0, None
+    ties = faults = 0
+    gaps, distances = [], []
     own = {}
     for i in sorted(held):
-        dpb_in, out = (_moved(d, device) for d in held[i])
+        dpb_in, out, _ = held[i]
+        dpb_in, out = _moved(dpb_in, device), _moved(out, device)
         x = frames(i)
-        if i % gop == 0:
-            expect = _i_dpb(ref.encode_i(x))
-        else:
-            if i % gop == 1 and (i - 1) in own:
-                dpb_in = own[i - 1]
-            expect = ref.encode_p(x, dpb_in, i)
+        name = cfg["models"]["i" if i % gop == 0 else "p"]
+        sym = Symbols(refs[name].STREAM,
+                      None if planes is None else planes.get(i, []), delta,
+                      None if residuals is None else residuals[i])
+        with _tf32(False):
+            if i % gop == 0:
+                expect = _i_dpb(reference_i(refs[name], cfg, x, sym))
+            else:
+                if i % gop == 1 and (i - 1) in own:
+                    dpb_in = own[i - 1]
+                expect = reference_p(refs[name], cfg, x, dpb_in, i, sym)
         own[i] = expect
+        ties += sym.ties
+        faults += sym.faults
+        gaps += sym.gaps
+        distances += sym.distances
         recon_gap = max(recon_gap, _gap(out["ref_frame"], expect["ref_frame"]))
         for k in DPB_KEYS[1:]:
             if expect.get(k) is None:
@@ -295,10 +394,15 @@ def readings(cfg: dict, w: dict, frames, gop: int, held: dict,
             scale = float(expect[k].abs().max().item()) or 1.0
             g = _gap(out[k], expect[k]) / scale
             feature_gap = g if feature_gap is None else max(feature_gap, g)
-    ref.close()
-    out = {"recon_gap": recon_gap}
+    refs.clear()
+    out = {"recon_gap": recon_gap, "symbol_faults": faults,
+           "tie_symbols": ties, "flip_distances": sorted(distances)}
     if feature_gap is not None:
         out["feature_gap"] = feature_gap
+    if gaps:
+        g = torch.cat(gaps)
+        out["residual_gap_max"] = float(g.max().item())
+        out["residual_gap_median"] = float(g.median().item())
     return out
 
 
@@ -310,7 +414,7 @@ def flops_by_kind(codec, frames, gop: int, dev) -> dict:
     dpb = None
     for i in range(min(gop, 3)):
         x = frames(i)
-        kind = "I" if i % gop == 0 else ("P1" if i % gop == 1 else "P")
+        kind = _kind(i, gop)
         box = {}
 
         def round_trip():
@@ -437,32 +541,54 @@ def run(ctx: dict) -> dict:
             prof_box["prof"], ("encode", "decode", "entropy"))
         rec["k1_bytes"] = list(k1.bytes)
         prof_box.clear()
+    t_check = time.perf_counter()
+    planes = decoded(codec, frames, gop, held, dev)
+    t_decoded = time.perf_counter()
     codec.close()
     del codec
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    rec["readings"] = readings(cfg, w, frames, gop, held, dev)
+    r = readings(cfg, w, frames, gop, held, dev, planes,
+                 ctx["limits"].get("tie_delta", 0.0))
+    rec["readings"] = r
     rec["checked"] = sorted(held)
+    rec["detail"] = {"tie_symbols": r["tie_symbols"],
+                     "check_decode_s": t_decoded - t_check,
+                     "check_s": time.perf_counter() - t_check}
     return rec
 
 
 def calibrate(ctx: dict, mode: str) -> dict:
-    """Readings of one seed with the program (``program``) or the control
-    (``control``) coding the frames a run of that seed checks."""
+    """Readings of one seed with the program (``program``) or a control
+    in its place (``control``: the reference in TF32; ``twin``: in
+    float64-accumulated convolutions) coding the frames a run of that seed
+    checks, beside those of the rule before the reference followed the
+    decoder's symbols (``old_recon_gap``, ``old_feature_gap``)."""
     cfg, mix, dev, seed = (ctx["config"], ctx["traffic"], ctx["device"],
                            ctx["seed"])
     frames = Frames(seed, mix["height"], mix["width"], mix["pad"],
                     mix["step"], mix["period"], dev)
     w = weights(cfg, seed, dev)
-    codec = (ReferenceCodec(cfg, w, dev, tf32=True) if mode == "control"
+    gop = mix["gop"]
+    controls = {"control": "tf32", "twin": "f64"}
+    codec = (ReferenceCodec(cfg, w, dev, controls[mode]) if mode in controls
              else ProgramCodec(cfg, w, dev))
     keep = sample(mix, seed)
     last = max(keep) + 1
-    _, held, _, _ = code_frames(codec, frames, mix["gop"],
+    _, held, _, _ = code_frames(codec, frames, gop,
                                 lambda n, _t: n >= last, keep, dev=dev)
+    planes = decoded(codec, frames, gop, held, dev)
     codec.close()
     del codec
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return {**readings(cfg, w, frames, mix["gop"], held, dev),
-            "checked": sorted(held)}
+    residuals = None
+    if mode in controls:
+        residuals = {i: held[i][2]["residuals"] for i in held}
+    out = readings(cfg, w, frames, gop, held, dev, planes,
+                   ctx["limits"].get("tie_delta", 0.0), residuals)
+    old = readings(cfg, w, frames, gop, held, dev, None, 0.0)
+    out["old_recon_gap"] = old["recon_gap"]
+    if "feature_gap" in old:
+        out["old_feature_gap"] = old["feature_gap"]
+    return {**out, "checked": sorted(held)}

@@ -34,6 +34,8 @@ def fine_q(anchors, index: int) -> float:
 # ---------------------------------------------------------------- IntraNoAR
 
 class IntraNoAR(nn.Module):
+    STREAM = ("z", "y0", "y1", "y2", "y3")     # the planes in stream order
+
     def __init__(self, N=256, anchor_num=4, ch_a=128, ch_b=192):
         super().__init__()
         self.N = N
@@ -76,17 +78,20 @@ class IntraNoAR(nn.Module):
                 self.y_spatial_prior(a(p)).chunk(8, 1) for i in (1, 2, 3)]
 
     @torch.no_grad()
-    def code(self, x, q_index: int):
+    def code(self, x, q_index: int, sym=None):
         """The reconstruction of I-frame ``x`` [1, 3, H, W] at fine q
-        ``q_index``, clamped to [0, 1]."""
+        ``q_index``, clamped to [0, 1]; ``sym`` (``symbols.Symbols``, the
+        planes of ``STREAM``) gives or takes the symbols."""
         dev = x.device
         qe = torch.tensor(fine_q(self.q_scale_enc, q_index), device=dev)
         qd = torch.tensor(fine_q(self.q_scale_dec, q_index), device=dev)
         y = self.enc.enc_2(self.enc.enc_1(x) * (self.q_basic_enc * qe))
         y_pad, pads = pad_to(y, 4)
-        z_hat = torch.round(self.hyper_enc(y_pad))
+        z = self.hyper_enc(y_pad)
+        z_hat = torch.round(z) if sym is None else sym.round("z", z)
         params = crop(self.y_prior_fusion(self.hyper_dec(z_hat)), pads)
-        y_hat = priors.four_part(y, params, self._spatial_fns())[2]
+        y_hat = priors.four_part(y, params, self._spatial_fns(),
+                                 sym=sym)[2]
         f = self.dec.dec_2(self.dec.dec_1(y_hat) * (self.q_basic_dec * qd))
         return torch.clamp(self.refine(f), 0.0, 1.0)
 
@@ -326,6 +331,8 @@ class DMC(nn.Module):
     exactly, and ``warps`` has to say so."""
 
     WARPED = True
+    STREAM = ("mv_z", "z", "mv_y0", "mv_y1", "mv_y2", "mv_y3", "y0", "y1",
+              "y2", "y3")
 
     def __init__(self, warps: dict | None = None, anchor_num: int = 4):
         super().__init__()
@@ -418,9 +425,12 @@ class DMC(nn.Module):
         return self.context_fusion_net(context1, flow_warp(ref_f2, mv2),
                                        flow_warp(ref_f3, mv3))
 
-    def forward(self, x, dpb, qs, frame_idx: int = 0, mode: str = "round"):
+    def forward(self, x, dpb, qs, frame_idx: int = 0, mode: str = "round",
+                sym=None):
         """One P-frame: the DPB the decoder holds after it and, for the
-        training loss, the estimated bits per pixel of each sample."""
+        training loss, the estimated bits per pixel of each sample.
+        ``sym`` (``symbols.Symbols``, the planes of ``STREAM``) gives or
+        takes the symbols."""
         mv_q_enc = self.mv_y_q_basic_enc * qs["mv_enc"]
         mv_q_dec = self.mv_y_q_basic_dec * qs["mv_dec"]
         y_q_enc = self.y_q_basic_enc * qs["y_enc"]
@@ -430,7 +440,8 @@ class DMC(nn.Module):
         mv_y = self.mv_encoder(est_mv, dpb["ref_mv_feature"], mv_q_enc)
         mv_y_pad, pads = pad_to(mv_y, 4)
         mv_z = self.mv_hyper_prior_encoder(mv_y_pad)
-        mv_z_hat = priors.quant(mv_z, mode)
+        mv_z_hat = (priors.quant(mv_z, mode) if sym is None
+                    else sym.round("mv_z", mv_z))
         p = crop(self.mv_hyper_prior_decoder(mv_z_hat), pads)
         if dpb["ref_mv_y"] is None:
             p = self.mv_y_prior_fusion_adaptor_0(p)
@@ -439,14 +450,14 @@ class DMC(nn.Module):
                 torch.cat([p, dpb["ref_mv_y"]], 1))
         mv_params = self.mv_y_prior_fusion(p)
         _, mv_y_q, mv_y_hat, mv_scales = priors.four_part(
-            mv_y, mv_params, self._spatial_fns("mv_"), mode)
+            mv_y, mv_params, self._spatial_fns("mv_"), mode, sym, "mv_y")
         mv_hat, mv_feature = self.mv_decoder(mv_y_hat, mv_q_dec)
         context1, context2, context3 = self._contexts(dpb, mv_hat, frame_idx)
 
         y = self.contextual_encoder(x, context1, context2, context3, y_q_enc)
         y_pad, pads = pad_to(y, 4)
         z = self.contextual_hyper_prior_encoder(y_pad)
-        z_hat = priors.quant(z, mode)
+        z_hat = priors.quant(z, mode) if sym is None else sym.round("z", z)
         hier = crop(self.contextual_hyper_prior_decoder(z_hat), pads)
         t = self.temporal_prior_encoder(context3)
         if dpb["ref_y"] is None:
@@ -456,7 +467,7 @@ class DMC(nn.Module):
                 torch.cat([t, hier, dpb["ref_y"]], 1))
         params = self.y_prior_fusion(p)
         _, y_q, y_hat, scales = priors.four_part(
-            y, params, self._spatial_fns(""), mode)
+            y, params, self._spatial_fns(""), mode, sym)
         res = self.contextual_decoder(y_hat, context2, context3, y_q_dec)
         feature, x_hat = self.recon_generation_net(res, context1)
         dpb_out = {"ref_frame": torch.clamp(x_hat, 0.0, 1.0),
@@ -479,6 +490,8 @@ EVC_CHANNELS = {"L": (192, 192, 192, 192), "M": (128, 128, 192, 192),
 
 class EVCIntra(nn.Module):
     """EVC image codec, encoder size X and decoder size Y of ``variant``."""
+
+    STREAM = ("z", "y0", "y1")
 
     def __init__(self, variant: str = "LL", N: int = 192, anchor_num: int = 4):
         super().__init__()
@@ -510,16 +523,18 @@ class EVCIntra(nn.Module):
         self.q_scale = nn.Parameter(torch.ones(anchor_num, 1, 1, 1))
 
     @torch.no_grad()
-    def code(self, x, q_scale: float):
+    def code(self, x, q_scale: float, sym=None):
         """The reconstruction of image ``x`` [1, 3, H, W] (H, W multiples
-        of 64) at ``q_scale``, clamped to [0, 1]."""
+        of 64) at ``q_scale``, clamped to [0, 1]; ``sym`` as in
+        ``IntraNoAR.code``."""
         curr_q = torch.clamp_min(self.q_basic, 0.5) * torch.tensor(
             q_scale, dtype=torch.float32, device=x.device)
         y = self.enc(x) / curr_q
-        z_hat = torch.round(self.hyper_enc(y))
+        z = self.hyper_enc(y)
+        z_hat = torch.round(z) if sym is None else sym.round("z", z)
         params = self.y_prior_fusion(self.hyper_dec(z_hat))
         q_step, scales, means = params.chunk(3, dim=1)
         y_hat = priors.dual_part(
             y, means, scales, q_step,
-            lambda p: self.y_spatial_prior(p).chunk(4, dim=1))[2]
+            lambda p: self.y_spatial_prior(p).chunk(4, dim=1), sym=sym)[2]
         return torch.clamp(self.dec(y_hat * curr_q), 0.0, 1.0)

@@ -1,7 +1,9 @@
 """The control, on the card: the reference computed in TF32 (the
 precision below the configurations' float32) in the program's place fails
-at least one of each cell's numbers, at a size a test run holds. The
-cell-size readings come from ``benchmark/calibrate.py`` (PERF.md)."""
+at least one of each cell's numbers, at a size a test run holds, and in a
+coding cell the reference with float64-accumulated convolutions (another
+exact order) passes. The cell-size readings come from
+``benchmark/calibrate.py`` (PERF.md)."""
 
 import pytest
 
@@ -34,3 +36,6 @@ def test_control_fails_and_program_passes(cell):
         ctrl = calibrate.read_seed(cell, seed, dev, "control", traffic=mix)
         assert correct(checks(prog, lim)), prog
         assert not correct(checks(ctrl, lim)), ctrl
+        if mix["kind"] == "coding_stream":
+            twin = calibrate.read_seed(cell, seed, dev, "twin", traffic=mix)
+            assert correct(checks(twin, lim)), twin

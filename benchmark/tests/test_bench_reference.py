@@ -39,6 +39,8 @@ def test_reference_equals_port_tiny(cell, monkeypatch):
     row = calibrate.read_seed(cell, 5, torch.device("cpu"), traffic=mix)
     assert row["checked"][:2] == [0, 1] and len(row["checked"]) == 4
     assert row["recon_gap"] == 0.0
+    assert row["symbol_faults"] == 0 and row["tie_symbols"] == 0
+    assert row["old_recon_gap"] == 0.0
     if cell.startswith("dc"):
         assert row["feature_gap"] == 0.0
 

@@ -71,6 +71,15 @@ def test_bench_run_ignored(monkeypatch):
     assert out["correct"] is True
 
 
+def test_a_parameter_of_the_limits_is_not_a_number_compared():
+    from benchmark.run import checks, correct
+
+    lim = {"symbol_faults": 0, "tie_delta": 1e-5}
+    assert set(checks({"symbol_faults": 0}, lim)) == {"symbol_faults"}
+    assert correct(checks({"symbol_faults": 0}, lim))
+    assert not correct(checks({"symbol_faults": 1}, lim))
+
+
 def test_checks_count_a_missing_number_as_failed():
     from benchmark.run import checks, correct
 
